@@ -42,6 +42,10 @@ def pytest_configure(config):
         "markers",
         "tpu: needs real TPU hardware; run via LSBENCH_TPU_TESTS=1 "
         "pytest -m tpu")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (lsbench_tpu_torch kernels); skips "
+        "without one; run via pytest -m cuda tests/")
 
 
 def pytest_collection_modifyitems(config, items):
