@@ -5,8 +5,9 @@
 
 Phases, each of which raises (exit code 1) on failure:
 
-1. Print the card's name and power limit (nvidia-smi), build the BSR SpMV
-   kernels from `lsbench_tpu_torch/csrc/` with nvcc and print the build time.
+1. Print the card's name and power limit (nvidia-smi), build the kernels
+   from `lsbench_tpu_torch/csrc/*.cu` (one nvcc per source, all started
+   together) and print the build time.
 2. Kernels: on the main path's layouts (RCM-ordered poisson_2d(512),
    n=262,144, class-padded and uniform; RCM-ordered random_spd(6408, 23),
    uniform) compare each kernel with its plain PyTorch version on the same
@@ -17,10 +18,26 @@ Phases, each of which raises (exit code 1) on failure:
    (`cg_ir`, RCM, rtol 1e-10, 2 trials, 1 warmup); check the reference CSV,
    convergence, the independent host f64 residual, and that the launch
    counters show each kernel of that path ran.
+4. AMG kernel: build the `amg_classical` hierarchy of RCM-ordered
+   poisson_2d(512) once and compare the window-ELL kernel (K4) with its
+   plain version (within 1e-5·max|y|) and with the host f64 CSR matvec
+   (within 2e-5·max|y|) on every operator laid out as window-ELL, with the
+   median CUDA-event times of the wrapper and the plain version, and the
+   device time of the kernel alone over back-to-back launches.
+5. AMG-CG-IR path: the CLI with `cg_ir --precond amg_classical --ordering
+   rcm --rtol 1e-10` on poisson_2d(512); it must converge to true relres
+   ≤ 1e-10 through K5, K1, K4 and K2.
+6. Fixed-cycle backend path: the CLI with `--solver hypre` (2 V-cycles) on
+   poisson_2d(512): the record must say `fp64(fp32_cycles_auto)`, K4 and K1
+   must run, the true relres must be finite and below 1. Then the same
+   solve of poisson_2d(128) on the card and with `--platform cpu` (the
+   plain versions): the two true relres agree to 1e-3 relative.
 
-The last two lines are the per-kernel JSON record and
-`{"ok": true, "device": {...}}`. Without a CUDA device it prints no result
-and exits 1. Nothing here imports JAX.
+Each path's launch counts are read from counters set to 0 just before it.
+The last two lines are the per-kernel JSON record (launches summed over the
+paths; `launches_by_path` in the order cg_ir on both matrices, AMG-CG-IR,
+hypre n=262k, hypre n=16k on the card) and `{"ok": true, "device": {...}}`. Without a CUDA device it prints
+no result and exits 1. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -36,13 +53,18 @@ import time
 
 import numpy as np
 
-SOURCE = "lsbench_tpu_torch/csrc/bsr_spmv.cu"
-# Kernel name → (launch counter, TPU kernel it replaces).
+BSR_SOURCE = "lsbench_tpu_torch/csrc/bsr_spmv.cu"
+WELL_SOURCE = "lsbench_tpu_torch/csrc/well_spmv.cu"
+# Kernel name → (launch counter, source, TPU kernel it replaces).
 KERNELS = {
-    "spmv_bsr_f32": ("bsr_f32", "lsbench_tpu/ops/spmv_pallas.py:47"),
-    "spmv_bsr_classed_f32": ("bsr_classed_f32",
+    "spmv_bsr_f32": ("bsr_f32", BSR_SOURCE,
+                     "lsbench_tpu/ops/spmv_pallas.py:47"),
+    "spmv_bsr_classed_f32": ("bsr_classed_f32", BSR_SOURCE,
                              "lsbench_tpu/ops/spmv_pallas.py:187"),
-    "spmv_bsr_f64acc": ("bsr_f64acc", "lsbench_tpu/ops/spmv_pallas.py:396"),
+    "spmv_bsr_f64acc": ("bsr_f64acc", BSR_SOURCE,
+                        "lsbench_tpu/ops/spmv_pallas.py:396"),
+    "spmv_well_f32": ("well_f32", WELL_SOURCE,
+                      "lsbench_tpu/ops/interp_pallas.py:139"),
 }
 # Iterations and passes of the same solves by the JAX package on the CPU
 # (cg_ir, rtol 1e-10, RCM, b[i] = i, its CPU default ELL layout), for
@@ -72,11 +94,13 @@ def card_line() -> str:
 def build_kernels() -> float:
     from lsbench_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
-    log = _cuda.build()
-    _cuda.library()
+    log = _cuda.build()  # one nvcc per source, run in parallel
+    for stem in _cuda.SOURCES:
+        _cuda.library(stem)
     seconds = time.perf_counter() - t0
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if ("registers" in line or "spill" in line or "Compiling" in line
+                or line.startswith("[")):
             print("  ptxas:", line.strip())
     return seconds
 
@@ -245,6 +269,222 @@ def main_path_phase(matrices) -> dict:
     return dict(LAUNCHES)
 
 
+def reset_counts() -> None:
+    from lsbench_tpu_torch.ops import interp_well, spmv_bsr
+    spmv_bsr.reset_launches()
+    interp_well.reset_launches()
+
+
+def read_counts() -> dict:
+    from lsbench_tpu_torch.ops import interp_well, spmv_bsr
+    return {**spmv_bsr.LAUNCHES, **interp_well.LAUNCHES}
+
+
+def _op_summary(op) -> str:
+    import torch
+    if isinstance(op, torch.Tensor):
+        return f"dense {op.numel() * op.element_size()} B"
+    kind = type(op).__name__
+    extra = (f" k8={op.k8} k_real={op.k_real} J={op.j_blocks}"
+             if kind == "WindowEll" else "")
+    return f"{kind}{extra} {op.bytes_streamed} B"
+
+
+def well_launch_ms(op, x, launches: int = 200) -> float:
+    """Device time of one K4 launch: CUDA events around `launches`
+    back-to-back launches of the kernel alone (no x-table fill, no wrapper
+    checks), so the host's per-call cost does not show as card idle."""
+    import torch
+
+    from lsbench_tpu_torch.ops import _cuda, interp_well
+    lib = _cuda.library("well_spmv")
+    xt = interp_well._x_table(op, x)
+    y = torch.empty(op.n_pad, dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (op.vals.data_ptr(), op.lcols.data_ptr(), op.w0.data_ptr(),
+            xt.data_ptr(), y.data_ptr(), op.n_pad, op.k_real, stream)
+    _cuda.check(lib.lsb_spmv_well_f32(*args), "spmv_well_f32")
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        lib.lsb_spmv_well_f32(*args)
+    end.record()
+    end.synchronize()
+    _cuda.check(lib.lsb_spmv_well_f32(*args), "spmv_well_f32")
+    return start.elapsed_time(end) / launches
+
+
+def amg_kernel_phase(A) -> dict:
+    """K4 against its plain version and the host f64 matvec on every
+    window-ELL operator of the amg_classical hierarchy of RCM-ordered
+    poisson_2d(512). Returns {max_abs_err, ms, plain_ms, shape} with the
+    times of the level-0 P."""
+    import torch
+
+    from lsbench_tpu_torch.ops.interp_well import (WindowEll, spmv_well,
+                                                   spmv_well_plain)
+    from lsbench_tpu_torch.ordering import rcm_ordering
+    from lsbench_tpu_torch.solvers import amg
+    from lsbench_tpu_torch.solvers.preconditioners import AMG_CLASSICAL
+
+    dev = torch.device("cuda")
+    P = A.permuted(rcm_ordering(A))
+    opts = amg.AmgOptions(**AMG_CLASSICAL)
+    t0 = time.perf_counter()
+    mats, coarse = amg.build_matrix_hierarchy(P, opts)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params, _, _ = amg.device_hierarchy(mats, coarse, opts, torch.float32,
+                                        "bsr", dev)
+    torch.cuda.synchronize()
+    print(f"amg hierarchy poisson_2d(512) RCM amg_classical: {len(mats) + 1} "
+          f"levels, host {host_s:.2f} s, device layouts "
+          f"{time.perf_counter() - t0:.2f} s, coarse n={coarse.nrows}")
+
+    result = {"max_abs_err": 0.0}
+    rng = np.random.default_rng(1)
+    n_well = 0
+    for lvl, (m, lp) in enumerate(zip(mats, params)):
+        print(f"  level {lvl}: n={m['A'].nrows} nnz(A)={m['A'].nnz} "
+              + " ".join(f"{k.upper()}=[{_op_summary(lp[k])}]"
+                         for k in ("a", "p", "r")))
+        for key in ("a", "p", "r"):
+            op = lp[key]
+            if not isinstance(op, WindowEll):
+                continue
+            M = m[key.upper()]
+            x_np = rng.standard_normal(M.ncols)
+            x = torch.as_tensor(x_np, dtype=torch.float32, device=dev)
+            y_k = spmv_well(op, x)
+            y_p = spmv_well_plain(op, x)
+            torch.cuda.synchronize()
+            label = f"level {lvl} {key.upper()} ({M.nrows}x{M.ncols})"
+            check(y_k.shape == (M.nrows,) and bool(torch.isfinite(y_k).all()),
+                  f"spmv_well_f32 [{label}]: bad output")
+            err = float((y_k - y_p).abs().max())
+            tol = 1e-5 * float(y_p.abs().max())
+            check(err <= tol, f"spmv_well_f32 [{label}]: max|kernel - plain| "
+                              f"= {err:.3e} > {tol:.3e}")
+            y_host = M.matvec(x_np)
+            host_err = float(np.abs(y_k.double().cpu().numpy() - y_host).max())
+            host_tol = 2e-5 * float(np.abs(y_host).max())
+            check(host_err <= host_tol,
+                  f"spmv_well_f32 [{label}]: max|kernel - host f64| = "
+                  f"{host_err:.3e} > {host_tol:.3e}")
+            ms = median_ms(lambda: spmv_well(op, x))
+            plain_ms = median_ms(lambda: spmv_well_plain(op, x))
+            launch_ms = well_launch_ms(op, x)
+            nbytes = op.bytes_streamed
+            print(f"kernel spmv_well_f32 [{label}]: max_abs_err={err:.3e} "
+                  f"(tol {tol:.3e}) host_err={host_err:.3e} wrapper "
+                  f"{ms:.4f} ms, kernel alone {launch_ms:.4f} ms "
+                  f"({nbytes / launch_ms / 1e6:.1f} GB/s of {nbytes} B), "
+                  f"plain {plain_ms:.4f} ms")
+            result["max_abs_err"] = max(result["max_abs_err"], err)
+            n_well += 1
+            if lvl == 0 and key == "p":
+                result.update(ms=ms, plain_ms=plain_ms, launch_ms=launch_ms,
+                              shape=f"poisson_2d(512) RCM amg_classical "
+                                    f"{label}, k8={op.k8} "
+                                    f"k_real={op.k_real} J={op.j_blocks}")
+    check("ms" in result, "level-0 P is not window-ELL")
+    print(f"  {n_well} window-ELL operators checked")
+    del params
+    torch.cuda.empty_cache()
+    return result
+
+
+def cli_path(label: str, fname: str, argv: list[str]):
+    """Run the CLI once; return (record, launch counts of this run, wall s).
+    Counters are set to 0 just before the run and read just after."""
+    from lsbench_tpu_torch.harness.bench import BenchRecord
+    from lsbench_tpu_torch.harness.cli import main as cli_main
+
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["--matrix", fname, *argv])
+    wall_s = time.perf_counter() - t0
+    ran = read_counts()
+    out = buf.getvalue().splitlines()
+    check(rc == 0, f"{label}: CLI exited {rc}")
+    check(len(out) == 3 and out[0] == BenchRecord.CSV_HEADER
+          and out[1].startswith(fname + ","),
+          f"{label}: unexpected CLI output {out[:2]}")
+    print(f"  csv: {out[1]}")
+    return json.loads(out[2]), ran, wall_s
+
+
+def amg_paths_phase(tmp: str, A512, A128) -> list[dict]:
+    """The AMG-CG-IR path and the hypre path through the CLI; returns each
+    path's launch counts."""
+    from lsbench_tpu_torch.matrix.io import write_matrix
+
+    f512 = os.path.join(tmp, "poisson_512.txt")
+    f128 = os.path.join(tmp, "poisson_128.txt")
+    write_matrix(A512, f512)
+    write_matrix(A128, f128)
+    counts = []
+
+    t0 = time.perf_counter()
+    rec, ran, wall = cli_path(
+        "amg-cg-ir", f512, ["--solver", "cg_ir", "--precond", "amg_classical",
+                            "--ordering", "rcm", "--rtol", "1e-10",
+                            "--trials", "2", "--warmups", "1", "--json"])
+    check(rec["converged"] is True, "amg-cg-ir: not converged")
+    check(rec["true_relres"] <= 1e-10,
+          f"amg-cg-ir: true_relres {rec['true_relres']:.3e} > 1e-10")
+    for k in ("bsr_classed_f32", "bsr_f32", "well_f32", "bsr_f64acc"):
+        check(ran[k] > 0, f"amg-cg-ir: kernel {k} never launched")
+    bd = rec["setup_breakdown"]
+    print(f"amg-cg-ir path poisson_2d(512): iters={rec['iters']} "
+          f"passes={rec['refine_passes']} "
+          f"true_relres={rec['true_relres']:.3e} setup_s={rec['setup_s']:.3f}"
+          f" (hierarchy as precond_s={bd['precond_s']:.3f}, ordering_s="
+          f"{bd['ordering_s']:.3f}, layout_s={bd['layout_s']:.3f}) "
+          f"solve_s={rec['solve_s']:.4f} first_call_s="
+          f"{rec['first_call_s']:.3f} cli_wall_s={wall:.2f} launches={ran} "
+          f"phase_s={time.perf_counter() - t0:.2f}")
+    counts.append(ran)
+
+    t0 = time.perf_counter()
+    hypre = ["--solver", "hypre", "--trials", "2", "--warmups", "1", "--json"]
+    rec, ran, wall = cli_path("hypre", f512, hypre)
+    check(rec["precision"] == "fp64(fp32_cycles_auto)",
+          f"hypre: precision {rec['precision']}")
+    check(bool(np.isfinite(rec["true_relres"])) and rec["true_relres"] < 1,
+          f"hypre: true_relres {rec['true_relres']}")
+    for k in ("well_f32", "bsr_f32"):
+        check(ran[k] > 0, f"hypre: kernel {k} never launched")
+    print(f"hypre path poisson_2d(512): cycles={rec['iters']} "
+          f"levels={rec['levels']} relres={rec['relres']:.4e} "
+          f"true_relres={rec['true_relres']:.4e} "
+          f"setup_s={rec['setup_s']:.3f} (hierarchy_s="
+          f"{rec['setup_breakdown']['hierarchy_s']:.3f}) "
+          f"solve_s={rec['solve_s']:.4f} first_call_s="
+          f"{rec['first_call_s']:.3f} cli_wall_s={wall:.2f} launches={ran} "
+          f"phase_s={time.perf_counter() - t0:.2f}")
+    counts.append(ran)
+
+    t0 = time.perf_counter()
+    small = ["--solver", "hypre", "--trials", "1", "--warmups", "1", "--json"]
+    rec_dev, ran, _ = cli_path("hypre 128 cuda", f128, small)
+    counts.append(ran)
+    rec_cpu, ran_cpu, _ = cli_path("hypre 128 cpu", f128,
+                                   small + ["--platform", "cpu"])
+    check(sum(ran_cpu.values()) == 0, f"--platform cpu launched {ran_cpu}")
+    a, b = rec_dev["true_relres"], rec_cpu["true_relres"]
+    check(abs(a - b) <= 1e-3 * abs(b),
+          f"hypre poisson_2d(128): card {a:.6e} vs plain {b:.6e}")
+    print(f"hypre poisson_2d(128): true_relres card {a:.6e} plain (cpu) "
+          f"{b:.6e} rel diff {abs(a - b) / abs(b):.2e} "
+          f"phase_s={time.perf_counter() - t0:.2f}")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -257,16 +497,35 @@ def main() -> int:
     print(f"build: {build_kernels():.2f} s")
 
     matrices = main_path_matrices()
+    t0 = time.perf_counter()
     measured = kernel_phase(matrices)
-    launches = main_path_phase(matrices)
+    print(f"phase kernels: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    path_counts = [main_path_phase(matrices)]
+    print(f"phase cg_ir paths: {time.perf_counter() - t0:.2f} s")
+
+    from lsbench_tpu_torch.matrix.generate import poisson_2d
+    t0 = time.perf_counter()
+    measured["spmv_well_f32"] = amg_kernel_phase(matrices["poisson_2d(512)"])
+    print(f"phase amg kernel: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path_counts += amg_paths_phase(tmp, matrices["poisson_2d(512)"],
+                                       poisson_2d(128))
+    print(f"phase amg paths: {time.perf_counter() - t0:.2f} s")
 
     kernels = []
-    for name, (counter, replaces) in KERNELS.items():
+    for name, (counter, source, replaces) in KERNELS.items():
         m = measured[name]
-        kernels.append({"name": name, "route": "cuda", "source": SOURCE,
-                        "replaces": replaces, "launches": launches[counter],
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces,
+                        "launches": sum(c.get(counter, 0) for c in path_counts),
+                        "launches_by_path": [c.get(counter, 0)
+                                             for c in path_counts],
                         "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-                        "plain_ms": m["plain_ms"], "shape": m["shape"]})
+                        "plain_ms": m["plain_ms"], "shape": m["shape"],
+                        **({"kernel_alone_ms": m["launch_ms"]}
+                           if "launch_ms" in m else {})})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -91,6 +91,16 @@ def run_bench(
     res = solver.solve(b)
     true_relres = _relative_residual(solver.A, res.x, b)
 
+    # A precision substitution (fp64 requested, run as f32 cycles or f32 +
+    # f64 refinement) shows in the `precision` field itself, e.g.
+    # "fp64(fp32_cycles_auto)": the reference enforces FP64
+    # (lsbench.c:140-141).
+    mode = res.extra.get("precision_mode")
+    if mode:
+        base = mode[: -len("_auto")] if mode.endswith("_auto") else mode
+        if base not in precision:
+            precision = f"{precision}({mode})"
+
     return BenchRecord(
         matrix=matrix_name, n=solver.A.nrows, nnz=solver.A.nnz,
         trials=trials, solver=solver.name, ordering=ordering,

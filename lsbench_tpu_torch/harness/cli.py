@@ -72,7 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rtol", type=float, default=None, help="override solver residual tolerance")
     p.add_argument("--maxiter", type=int, default=None)
     p.add_argument("--precond", default=None,
-                   help="override preconditioner (none|jacobi)")
+                   help="override preconditioner "
+                        "(none|jacobi|amg|amg_classical)")
     p.add_argument("--nrhs", type=int, default=1,
                    help="right-hand sides per solve (only 1 is ported)")
     p.add_argument("--json", action="store_true", help="emit a JSON record after the CSV line")
@@ -186,6 +187,8 @@ def main(argv=None) -> int:
         ir_map = {"cg": "cg_ir"}
         target = ir_map.get(cls.name, cls.name)
         if not target.endswith("_ir"):
+            # AMG (amg, hypre, amgx, paralmond) runs its fp64 converge
+            # mode as f32 cycles + f64 refinement already.
             print(f"Precision 'fp32_ir' is only implemented for the cg "
                   f"solver family (got '{solver_name}').", file=sys.stderr)
             return 1

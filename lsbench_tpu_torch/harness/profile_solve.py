@@ -2,9 +2,9 @@
 
     python -m lsbench_tpu_torch.harness.profile_solve [--out FILE]
 
-For each main-path matrix (RCM-ordered poisson_2d(512) and
-random_spd(6408, 23); cg_ir, rtol 1e-10, b[i] = i — the solves chip_smoke.py
-drives through the CLI):
+For each case (RCM-ordered poisson_2d(512) and random_spd(6408, 23) with
+the Jacobi preconditioner, and poisson_2d(512) with `amg_classical`; cg_ir,
+rtol 1e-10, b[i] = i — the solves chip_smoke.py drives through the CLI):
 
 1. set the solver up and solve once (kernel build, first launches);
 2. time 3 unprofiled solves, each fenced with `torch.cuda.synchronize`;
@@ -16,9 +16,11 @@ drives through the CLI):
 
 `idle_share = 1 - busy_s / wall_s`. The profiler slows the host (it records
 every launch), not the device, so the busy time of the profiled solve is
-set against the unprofiled wall time of the same process. `spmv_ms` is the
-inner f32 SpMV kernel's device time per CG iteration (one SpMV each), and
-`spmv_gbps` the operator's stored blocks streamed in that time.
+set against the unprofiled wall time of the same process. With the Jacobi
+preconditioner, `spmv_ms` is the inner f32 SpMV kernel's device time per CG
+iteration (one SpMV each), and `spmv_gbps` the operator's stored blocks
+streamed in that time; with AMG the same kernels also run inside the
+V-cycle, so those two are left out.
 
 Prints one JSON object per matrix; `--out` also writes them, with the full
 per-kernel table, to a file. Raises if the trace holds no device events.
@@ -70,9 +72,12 @@ def _union_us(events: list[dict]) -> float:
     return total
 
 
-def profile_matrix(label: str, A, device) -> dict:
+def profile_matrix(label: str, A, device, precond: str = "jacobi") -> dict:
     b = torch.as_tensor(np.arange(A.nrows, dtype=np.float64), device=device)
-    solver = CgIrSolver(A, rtol=1e-10, ordering="rcm", device=device)
+    t0 = time.perf_counter()
+    solver = CgIrSolver(A, rtol=1e-10, ordering="rcm", precond=precond,
+                        device=device)
+    setup_s = time.perf_counter() - t0
     _timed_solve(solver, b)
     walls, res = [], None
     for _ in range(3):
@@ -101,21 +106,23 @@ def profile_matrix(label: str, A, device) -> dict:
     table = sorted(({"name": k, **v} for k, v in by_name.items()),
                    key=lambda d: -d["device_ms"])
     busy_s = _union_us(events) / 1e6
-    inner_ms = sum(d["device_ms"] for d in table
-                   if any(k in d["name"] for k in INNER_KERNELS))
-    spmv_ms = inner_ms / max(res.iters, 1)
-    nbytes = solver._op.bytes_streamed
-    return {
-        "matrix": label, "n": A.nrows, "nnz": A.nnz, "iters": res.iters,
-        "passes": res.extra["refine_passes"],
-        "inner_op": type(solver._op).__name__,
+    out = {
+        "matrix": label, "precond": precond, "n": A.nrows, "nnz": A.nnz,
+        "iters": res.iters, "passes": res.extra["refine_passes"],
+        "inner_op": type(solver._op).__name__, "setup_s": setup_s,
         "wall_s": wall_s, "walls_s": walls, "profiled_wall_s": prof_wall,
         "busy_s": busy_s, "idle_share": 1.0 - busy_s / wall_s,
-        "inner_spmv_share": inner_ms / 1e3 / wall_s,
-        "spmv_ms": spmv_ms, "spmv_bytes": nbytes,
-        "spmv_gbps": nbytes / spmv_ms / 1e6 if spmv_ms > 0 else None,
-        "kernels": table,
     }
+    if precond == "jacobi":
+        inner_ms = sum(d["device_ms"] for d in table
+                       if any(k in d["name"] for k in INNER_KERNELS))
+        spmv_ms = inner_ms / max(res.iters, 1)
+        nbytes = solver._op.bytes_streamed
+        out.update(inner_spmv_share=inner_ms / 1e3 / wall_s, spmv_ms=spmv_ms,
+                   spmv_bytes=nbytes,
+                   spmv_gbps=nbytes / spmv_ms / 1e6 if spmv_ms > 0 else None)
+    out["kernels"] = table
+    return out
 
 
 def main(argv=None) -> int:
@@ -127,9 +134,12 @@ def main(argv=None) -> int:
         return 1
     device = torch.device("cuda")
     results = []
-    for label, A in (("poisson_2d(512)", poisson_2d(512)),
-                     ("random_spd(6408,23)", random_spd(6408, 23))):
-        r = profile_matrix(label, A, device)
+    p512 = poisson_2d(512)
+    for label, A, precond in (("poisson_2d(512)", p512, "jacobi"),
+                              ("random_spd(6408,23)", random_spd(6408, 23),
+                               "jacobi"),
+                              ("poisson_2d(512)", p512, "amg_classical")):
+        r = profile_matrix(label, A, device, precond)
         results.append(r)
         top = r["kernels"][:8]
         print(json.dumps({k: v for k, v in r.items() if k != "kernels"}))

@@ -79,12 +79,28 @@ class CsrMatrix:
         offs[1:] = np.cumsum(np.bincount(rows, minlength=nrows))
         return CsrMatrix(nrows, ncols, offs, cols.astype(np.int32), vals)
 
+    @staticmethod
+    def from_dense(a: np.ndarray, tol: float = 0.0) -> "CsrMatrix":
+        a = np.asarray(a, dtype=np.float64)
+        r, c = np.nonzero(np.abs(a) > tol)
+        return CsrMatrix.from_coo(r, c, a[r, c], nrows=a.shape[0], ncols=a.shape[1])
+
+    def to_dense(self) -> np.ndarray:
+        out = np.zeros(self.shape, dtype=np.float64)
+        out[self.row_indices(), self.cols] = self.vals
+        return out
+
     def to_coo(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         return self.row_indices(), self.cols.copy(), self.vals.copy()
 
     def row_indices(self) -> np.ndarray:
         """Expand offs to a per-nnz row index array."""
         return np.repeat(np.arange(self.nrows, dtype=np.int64), np.diff(self.offs))
+
+    def transpose(self) -> "CsrMatrix":
+        r, c, v = self.to_coo()
+        return CsrMatrix.from_coo(c, r, v, nrows=self.ncols, ncols=self.nrows,
+                                  sum_duplicates=False)
 
     def diagonal(self) -> np.ndarray:
         d = np.zeros(min(self.shape), dtype=np.float64)

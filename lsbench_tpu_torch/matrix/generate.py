@@ -33,6 +33,31 @@ def poisson_2d(nx: int, ny: int | None = None) -> CsrMatrix:
                               np.concatenate(vals), nrows=n, ncols=n)
 
 
+def poisson_3d(nx: int, ny: int | None = None, nz: int | None = None) -> CsrMatrix:
+    """7-point Laplacian on an nx × ny × nz grid (SPD, 0-based)."""
+    ny = ny or nx
+    nz = nz or nx
+    n = nx * ny * nz
+    idx = np.arange(n).reshape(nx, ny, nz)
+    rows, cols, vals = [], [], []
+
+    def add(r, c, v):
+        rows.append(r.ravel())
+        cols.append(c.ravel())
+        vals.append(np.full(r.size, v))
+
+    add(idx, idx, 6.0)
+    for axis in range(3):
+        lo = [slice(None)] * 3
+        hi = [slice(None)] * 3
+        lo[axis] = slice(1, None)
+        hi[axis] = slice(None, -1)
+        add(idx[tuple(lo)], idx[tuple(hi)], -1.0)
+        add(idx[tuple(hi)], idx[tuple(lo)], -1.0)
+    return CsrMatrix.from_coo(np.concatenate(rows), np.concatenate(cols),
+                              np.concatenate(vals), nrows=n, ncols=n)
+
+
 def sem_2d(ne: int, p: int = 2, shift: float = 1e-3) -> CsrMatrix:
     """SEM-type SPD matrix: ne × ne spectral elements of order p on a 2-D
     quad mesh; every element's (p+1)² nodes form a clique (the assembled

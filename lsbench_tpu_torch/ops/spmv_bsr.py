@@ -86,7 +86,7 @@ def spmv_bsr(A: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
     _check(A.block_cols, "block_cols", torch.int32, (A.n_groups, A.slots))
     if _on_cpu(A.blocks, A.block_cols, x):
         return spmv_bsr_plain(A, x)
-    lib = _cuda.library()
+    lib = _cuda.library("bsr_spmv")
     xt = _x_table(x, A.ncols, A.n_col_blocks, torch.float32)
     y = torch.empty((A.n_groups, BR), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
@@ -130,7 +130,7 @@ def spmv_bsr_classed(A: BsrClassed, x: torch.Tensor) -> torch.Tensor:
     tensors = [*A.blocks, *A.bcols, *A.oidx, x]
     if _on_cpu(*tensors):
         return spmv_bsr_classed_plain(A, x)
-    lib = _cuda.library()
+    lib = _cuda.library("bsr_spmv")
     xt = _x_table(x, A.ncols, A.n_col_blocks, torch.float32)
     y = torch.zeros((A.n_groups, BR), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
@@ -162,7 +162,7 @@ def _f64acc(hi, lo, block_cols, ncols, nrows, n_cb, x):
     _check(block_cols, "block_cols", torch.int32)
     if _on_cpu(hi, lo, block_cols, x):
         return _f64acc_plain(hi, lo, block_cols, ncols, nrows, n_cb, x)
-    lib = _cuda.library()
+    lib = _cuda.library("bsr_spmv")
     xt = _x_table(x, ncols, n_cb, torch.float64)
     y = torch.empty((G, BR), dtype=torch.float64, device=x.device)
     with torch.cuda.device(x.device):

@@ -11,6 +11,7 @@ densifies the blocks.
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -70,9 +71,33 @@ def resolve_layout(layout: str, dtype) -> str:
     return "bsr" if as_dtype(dtype) == torch.float32 else "bsr_df64"
 
 
-def build_matvec(A: CsrMatrix, layout: str, device):
+@contextlib.contextmanager
+def full_f32():
+    """Run f32 matrix products and triangular solves in full f32 whatever
+    the global TF32 switches say (JAX's `Precision.HIGHEST`)."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def _dense_matvec(op: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    with full_f32():
+        return torch.matmul(op, v.to(op.dtype))
+
+
+def build_matvec(A: CsrMatrix, layout: str, device, dtype=torch.float32):
     """Return (apply_fn, op) for the chosen layout; `apply_fn(op, v)` runs
-    the SpMV and `op.bytes_streamed` is its device-memory stream."""
+    the SpMV. `dtype` is the dense layout's; the BSR layouts fix their own.
+
+    "dense" (small coarse AMG levels) is one library matrix-vector product
+    on the dense operator, outside any kernel of this package, as the JAX
+    package leaves it to XLA."""
+    if layout == "dense":
+        op = torch.as_tensor(A.to_dense(), dtype=as_dtype(dtype), device=device)
+        return _dense_matvec, op
     if layout == "bsr":
         if classed_layout_wins(A):
             layout = "bsr_classed"
@@ -85,7 +110,7 @@ def build_matvec(A: CsrMatrix, layout: str, device):
     if layout == "bsr_df64":
         op = BsrDf64.from_csr(A, device=device)
         return spmv_bsr_df64, op
-    if layout in ("ell", "dense", "bsr_xla"):
+    if layout in ("ell", "bsr_xla"):
         raise NotImplementedError(
             f"layout '{layout}' is not yet ported to lsbench_tpu_torch "
             "(ROADMAP.md Queue 1)")

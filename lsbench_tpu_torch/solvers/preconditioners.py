@@ -1,10 +1,10 @@
 """Preconditioners for the Krylov solvers (counterpart of
 `lsbench_tpu/solvers/preconditioners.py`).
 
-A preconditioner is `(state, apply)` with `apply(state, r) -> z`. The slice
-ports `none` (identity) and `jacobi`; the others (block_jacobi, ic0,
-chebyshev, amg, amg_classical) are ROADMAP Queue 1 items and raise
-NotImplementedError.
+A preconditioner is `(state, apply)` with `apply(state, r) -> z`. Ported:
+`none` (identity), `jacobi`, and one AMG V-cycle (`amg`, `amg_classical`,
+`solvers/amg.py`); block_jacobi, ic0 and chebyshev are ROADMAP Queue 1
+items and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -28,11 +28,30 @@ def jacobi_precond(A: CsrMatrix, dtype, device, **_):
     return inv_dev, lambda inv_dev, r: inv_dev * r
 
 
+def _amg_precond(A: CsrMatrix, dtype, device, **amg_params):
+    from lsbench_tpu_torch.solvers.amg import amg_precond
+    return amg_precond(A, dtype, device, **amg_params)
+
+
+# Defaults of `amg_classical`, the JAX package's: classical AMG (PMIS) with
+# direct interpolation improved by 3 damped (ω=0.5) Jacobi passes toward the
+# ideal -A_FF⁻¹A_FC, truncated to 8 entries per row, θ=0.5.
+AMG_CLASSICAL = dict(coarsening="classical", theta=0.5, interp="jacobi",
+                     interp_passes=3, interp_omega=0.5, pmax=8)
+
+
+def _amg_classical_precond(A: CsrMatrix, dtype, device, **amg_params):
+    """Classical-AMG V-cycle — the Hypre/AmgX-family preconditioner."""
+    return _amg_precond(A, dtype, device, **{**AMG_CLASSICAL, **amg_params})
+
+
 PRECONDITIONERS = {
     "none": identity_precond,
     "jacobi": jacobi_precond,
+    "amg": _amg_precond,
+    "amg_classical": _amg_classical_precond,
 }
-NOT_PORTED = ("block_jacobi", "ic0", "chebyshev", "amg", "amg_classical")
+NOT_PORTED = ("block_jacobi", "ic0", "chebyshev")
 
 
 def get_preconditioner(name: str):

@@ -47,6 +47,52 @@ def test_csv_and_json_match_jax_cli(tiny_matrix_file, capsys, extra):
     assert rec["device"] == "cpu"
 
 
+@pytest.fixture
+def poisson_file(tmp_path):
+    from lsbench_tpu_torch.matrix.generate import poisson_2d
+    from lsbench_tpu_torch.matrix.io import write_matrix
+    f = tmp_path / "p20.txt"
+    write_matrix(poisson_2d(20), str(f))
+    return f
+
+
+@pytest.mark.parametrize("solver,mode", [("hypre", "fp32_cycles_auto"),
+                                         ("amg", "fp32_ir_auto")])
+def test_amg_backend_through_the_cli(poisson_file, capsys, solver, mode):
+    """`--solver hypre` resolves to the AMG solver with the hypre preset;
+    the record names the precision substitution, as the JAX CLI's does."""
+    argv = ["--matrix", str(poisson_file), "--solver", solver, "--trials",
+            "2", "--warmups", "1", "--json", "--rtol", "1e-10"]
+    rc, out, err = _run(main, argv + ["--platform", "cpu"], capsys)
+    assert rc == 0, err
+    assert out[0] == BenchRecord.CSV_HEADER
+    fields = out[1].split(",")
+    assert fields[1:6] == ["400", "1920", "2", solver, "none"]
+    rec = json.loads(out[2])
+    assert rec["precision"] == f"fp64({mode})" and mode in err
+    assert rec["levels"] >= 2 and rec["device"] == "cpu"
+    if solver == "hypre":
+        assert rec["iters"] == 2 and rec["mode"] == "fixed_2_cycles"
+        assert 0 < rec["true_relres"] < 1e-2
+    else:
+        assert rec["converged"] and rec["true_relres"] <= 1e-10
+    # fp32_ir on an AMG solver is refused, as by the JAX CLI.
+    rc, out, err = _run(main, argv + ["--platform", "cpu", "--precision",
+                                      "fp32_ir"], capsys)
+    assert rc == 1 and not out and "fp32_ir" in err
+
+
+def test_cg_ir_with_amg_classical_through_the_cli(poisson_file, capsys):
+    argv = ["--matrix", str(poisson_file), "--solver", "cg_ir", "--precond",
+            "amg_classical", "--ordering", "rcm", "--rtol", "1e-10",
+            "--trials", "1", "--json", "--platform", "cpu"]
+    rc, out, _ = _run(main, argv, capsys)
+    assert rc == 0
+    rec = json.loads(out[2])
+    assert rec["converged"] and rec["true_relres"] <= 1e-10
+    assert rec["iters"] < 20 and rec["precision"] == "fp64"
+
+
 def test_rejects_fp16(tiny_matrix_file, capsys):
     rc, out, err = _run(main, ["--matrix", str(tiny_matrix_file),
                                "--precision", "fp16", "--platform", "cpu"],
@@ -77,7 +123,7 @@ def test_missing_or_malformed_file(tmp_path, capsys, content):
     ["--devices", "2"], ["--mesh", "2x4"], ["--nrhs", "2"], ["--roofline"],
     ["--profile-dir", "prof"], ["--cache"], ["--cache-dir", "c"],
     ["--coordinator", "localhost:1234"], ["--debug-nans"],
-    ["--ordering", "amd"], ["--ordering", "metis"], ["--precond", "amg"],
+    ["--ordering", "amd"], ["--ordering", "metis"], ["--precond", "ic0"],
     ["--platform", "tpu"],
 ])
 def test_unported_flags_exit_1(tiny_matrix_file, capsys, flags):

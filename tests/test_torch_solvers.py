@@ -87,7 +87,7 @@ def test_unported_options_raise():
     from lsbench_tpu_torch.matrix.generate import poisson_2d
     A = poisson_2d(6)
     cls, _ = get_solver("cg")
-    for kw in (dict(layout="ell"), dict(precond="amg"),
+    for kw in (dict(layout="ell"), dict(precond="ic0"),
                dict(ordering="amd")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cls(A, device="cpu", **kw)

@@ -133,17 +133,20 @@ def test_ops_import_builds_nothing(tmp_path):
     triton and builds nothing."""
     code = (
         "import sys, os, torch\n"
-        "from lsbench_tpu_torch.ops import _cuda, spmv_bsr as ops\n"
+        "from lsbench_tpu_torch.ops import _cuda, interp_well, spmv_bsr as ops\n"
         "from lsbench_tpu_torch.matrix.generate import poisson_2d\n"
         "from lsbench_tpu_torch.matrix.bsr import BsrMatrix\n"
         "A = poisson_2d(9)\n"
         "ops.spmv_bsr(BsrMatrix.from_csr(A, device='cpu'), torch.ones(81))\n"
-        "assert _cuda._lib is None\n"
+        "W = interp_well.WindowEll.from_csr(A, device='cpu')\n"
+        "interp_well.spmv_well(W, torch.ones(81))\n"
+        "assert not _cuda._libs\n"
         "assert 'triton' not in sys.modules and 'jax' not in sys.modules\n"
         "assert sum(ops.LAUNCHES.values()) == 0\n"
-        "print(os.path.exists(_cuda.LIBRARY))\n")
+        "assert interp_well.LAUNCHES['well_f32'] == 0\n"
+        "print([os.path.exists(_cuda.library_path(s)) for s in _cuda.SOURCES])\n")
     from lsbench_tpu_torch.ops import _cuda
-    existed = os.path.exists(_cuda.LIBRARY)
+    existed = [os.path.exists(_cuda.library_path(s)) for s in _cuda.SOURCES]
     env = dict(os.environ, PATH=str(tmp_path), PYTHONPATH=REPO)
     env.pop("CUDA_HOME", None)
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
