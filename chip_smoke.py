@@ -32,17 +32,34 @@ Phases, each of which raises (exit code 1) on failure:
    must run, the true relres must be finite and below 1. Then the same
    solve of poisson_2d(128) on the card and with `--platform cpu` (the
    plain versions): the two true relres agree to 1e-3 relative.
+7. Multi-RHS kernel (K3, in phase 2): `spmm_bsr` on the uniform layouts of
+   RCM poisson_2d(512) and random_spd(6408, 23) for k in {1, 3, 8, 16},
+   each column within 1e-5·max|Y_j| of the plain version and 2e-5·max|Y_j|
+   of the host f64 CSR product, with median CUDA-event times and GB/s.
+8. Multi-RHS paths through the CLI: `--solver cg --nrhs 8` (block CG, rtol
+   1e-10, RCM) on both matrices, `--solver ginkgo --nrhs 8` (batched
+   BiCGSTAB) on poisson_2d(512), one-RHS `--solver ginkgo` (bicgstab_ir,
+   `fp64(fp32_ir_auto)`) on random_spd(6408, 23), each through its kernels;
+   then `--solver cg --nrhs 4` on poisson_2d(128) on the card and with
+   `--platform cpu`: both reach 1e-10 within max(3, 10%) block iterations
+   of each other, and the CPU run launches nothing.
 
 Each path's launch counts are read from counters set to 0 just before it.
-The last two lines are the per-kernel JSON record (launches summed over the
-paths; `launches_by_path` in the order cg_ir on both matrices, AMG-CG-IR,
-hypre n=262k, hypre n=16k on the card) and `{"ok": true, "device": {...}}`. Without a CUDA device it prints
-no result and exits 1. Nothing here imports JAX.
+Beside each kernel's times the record carries its bound (`bound_ms`: the
+larger of the bytes it must move over 3.35 TB/s and its operations over
+the card's peak for their type) and the time of the cuSPARSE product
+`torch.sparse_csr_tensor(...) @ x` on the same operator (`library_ms`,
+timed here only; the port never calls it). The log also prints the bytes
+bound of the operator's CSR form beside each bound. The last two lines are the
+per-kernel JSON record (launches summed over the paths; `launches_by_path`
+in the order of `PATHS`) and `{"ok": true, "device": {...}}`. Without a
+CUDA device it prints no result and exits 1. Nothing here imports JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
+import inspect
 import io
 import json
 import os
@@ -65,7 +82,18 @@ KERNELS = {
                         "lsbench_tpu/ops/spmv_pallas.py:396"),
     "spmv_well_f32": ("well_f32", WELL_SOURCE,
                       "lsbench_tpu/ops/interp_pallas.py:139"),
+    "spmm_bsr_f32": ("bsr_mm_f32", BSR_SOURCE,
+                     "lsbench_tpu/ops/spmv_pallas.py:255"),
 }
+# The main-path runs whose launch counts the record lists, in order.
+PATHS = ("cg_ir poisson_2d(512) + random_spd(6408,23)",
+         "cg_ir amg_classical poisson_2d(512)", "hypre poisson_2d(512)",
+         "hypre poisson_2d(128)", "cg --nrhs 8 poisson_2d(512)",
+         "cg --nrhs 8 random_spd(6408,23)", "ginkgo --nrhs 8 poisson_2d(512)",
+         "ginkgo random_spd(6408,23)", "cg --nrhs 4 poisson_2d(128)")
+# H100 SXM data sheet: HBM3 rate, and peak rates outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
 # Iterations and passes of the same solves by the JAX package on the CPU
 # (cg_ir, rtol 1e-10, RCM, b[i] = i, its CPU default ELL layout), for
 # comparison only. At n=262k it needs more inner iterations than the port
@@ -122,6 +150,38 @@ def median_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
+def bound(nbytes: int, flops: int, kind: str) -> tuple[float, str]:
+    """Least time (ms) the card could take: bytes over the HBM rate or
+    operations over the peak rate for `kind`, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def csr_bound_ms(A, value_bytes: int, k: int = 1) -> float:
+    """The bytes bound of the same product on the CSR form of A: values and
+    int32 column indices of the nonzeros, int32 row offsets, x and y."""
+    nbytes = (A.nnz * (value_bytes + 4) + (A.nrows + 1) * 4
+              + (A.ncols + A.nrows) * value_bytes * k)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def library_ms(A, dtype, X) -> float:
+    """Median time of cuSPARSE's product (torch.sparse_csr_tensor @ X) on
+    A, the library call computing the kernel's function; timed only."""
+    import warnings
+
+    import torch
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore")
+        M = torch.sparse_csr_tensor(
+            torch.as_tensor(A.offs, dtype=torch.int64),
+            torch.as_tensor(A.cols, dtype=torch.int64),
+            torch.as_tensor(A.vals, dtype=dtype), size=(A.nrows, A.ncols),
+            device=X.device)
+        return median_ms(lambda: M @ X)
+
+
 def main_path_matrices():
     from lsbench_tpu_torch.matrix.generate import poisson_2d, random_spd
     return {"poisson_2d(512)": poisson_2d(512),
@@ -171,13 +231,20 @@ def kernel_phase(matrices) -> dict:
          lambda x: ops.spmv_bsr_df64_lo_plain(r_uni, r_lo, x),
          2 * r_uni.bytes_streamed, True),
     ]
-    # The shape each kernel runs at on the main path (reported in the JSON).
+    # The shape each kernel runs at on the main path (reported in the JSON),
+    # and the bytes of its layout's index arrays there.
     main_shape = {"spmv_bsr_classed_f32": "poisson_2d(512) RCM classed",
                   "spmv_bsr_f32": "random_spd(6408,23) RCM uniform",
                   "spmv_bsr_f64acc": "poisson_2d(512) RCM df64"}
+    layout_index_bytes = {
+        "spmv_bsr_classed_f32": 4 * sum(t.numel() for t in
+                                        (*p_cls.bcols, *p_cls.oidx)),
+        "spmv_bsr_f32": 4 * r_uni.block_cols.numel(),
+        "spmv_bsr_f64acc": 4 * p_64.block_cols.numel()}
 
     results = {}
     rng = np.random.default_rng(0)
+    lib_dtype = {False: torch.float32, True: torch.float64}
     for name, shape, A, kern, plain, nbytes, f64 in cases:
         x_np = rng.standard_normal(A.ncols)
         x = torch.as_tensor(x_np, dtype=torch.float64 if f64 else torch.float32,
@@ -209,10 +276,83 @@ def kernel_phase(matrices) -> dict:
         entry = results.setdefault(name, {"max_abs_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         if shape == main_shape[name]:
-            entry.update(ms=ms, plain_ms=plain_ms, shape=shape)
+            vb = 8 if f64 else 4
+            # The function's bytes: every array of the layout once, x read
+            # and y written once. K2 does 3 FP64 operations per stored
+            # element (hi + lo, multiply, add); the f32 kernels 2.
+            elems = nbytes // (8 if f64 else 4)
+            b_ms, b_by = bound(nbytes + layout_index_bytes[name]
+                               + (A.ncols + A.nrows) * vb,
+                               (3 if f64 else 2) * elems,
+                               "f64" if f64 else "f32")
+            lib = library_ms(A, lib_dtype[f64], x)
+            entry.update(ms=ms, plain_ms=plain_ms, shape=shape,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+            print(f"  bound {b_ms:.4f} ms ({b_by}), CSR bound "
+                  f"{csr_bound_ms(A, vb):.4f} ms, cuSPARSE {lib:.4f} ms")
+    results["spmm_bsr_f32"] = spmm_cases(
+        {"poisson_2d(512) RCM uniform": (P, p_uni),
+         "random_spd(6408,23) RCM uniform": (R, r_uni)}, rng)
     del p_cls, p_uni, p_64, r_uni, r_lo
     torch.cuda.empty_cache()
     return results
+
+
+def spmm_cases(layouts, rng) -> dict:
+    """K3 against its plain version and the host f64 CSR product, column by
+    column, for k in {1, 3, 8, 16} on each uniform layout; returns the
+    record entry with k=8 on poisson_2d(512)."""
+    import scipy.sparse as sp
+    import torch
+
+    from lsbench_tpu_torch.ops import spmv_bsr as ops
+
+    result = {"max_abs_err": 0.0}
+    for shape, (A, op) in layouts.items():
+        dev = op.blocks.device
+        host = sp.csr_matrix((A.vals, A.cols, A.offs), shape=A.shape)
+        for k in (1, 3, 8, 16):
+            X_np = rng.standard_normal((A.ncols, k))
+            X = torch.as_tensor(X_np, dtype=torch.float32, device=dev)
+            Y_k = ops.spmm_bsr(op, X)
+            Y_p = ops.spmm_bsr_plain(op, X)
+            torch.cuda.synchronize()
+            label = f"spmm_bsr_f32 [{shape}, k={k}]"
+            check(Y_k.shape == (A.nrows, k)
+                  and bool(torch.isfinite(Y_k).all()), f"{label}: bad output")
+            Y_host = host @ X_np
+            err = (Y_k - Y_p).abs().amax(dim=0).cpu().numpy()
+            tol = 1e-5 * Y_p.abs().amax(dim=0).cpu().numpy()
+            check(bool(np.all(err <= tol)), f"{label}: max|kernel - plain| "
+                  f"per column {err} > {tol}")
+            host_err = np.abs(Y_k.double().cpu().numpy() - Y_host).max(axis=0)
+            host_tol = 2e-5 * np.abs(Y_host).max(axis=0)
+            check(bool(np.all(host_err <= host_tol)),
+                  f"{label}: max|kernel - host f64| per column {host_err} > "
+                  f"{host_tol}")
+            ms = median_ms(lambda: ops.spmm_bsr(op, X))
+            plain_ms = median_ms(lambda: ops.spmm_bsr_plain(op, X))
+            nbytes = op.bytes_streamed
+            print(f"kernel {label}: max_abs_err={err.max():.3e} (tol "
+                  f"{tol.min():.3e}..{tol.max():.3e}) host_err="
+                  f"{host_err.max():.3e} kernel {ms:.4f} ms "
+                  f"({nbytes / ms / 1e6:.1f} GB/s of {nbytes} B) plain "
+                  f"{plain_ms:.4f} ms")
+            result["max_abs_err"] = max(result["max_abs_err"],
+                                        float(err.max()))
+            if k == 8 and shape.startswith("poisson_2d(512)"):
+                b_ms, b_by = bound(
+                    nbytes + op.block_cols.numel() * 4
+                    + (A.ncols + A.nrows) * 4 * k,
+                    2 * k * op.blocks.numel(), "f32")
+                lib = library_ms(A, torch.float32, X)
+                result.update(ms=ms, plain_ms=plain_ms,
+                              shape=f"{shape}, k=8", bound_ms=b_ms,
+                              bound_by=b_by, library_ms=lib)
+                print(f"  bound {b_ms:.4f} ms ({b_by}), CSR bound "
+                      f"{csr_bound_ms(A, 4, k):.4f} ms, cuSPARSE SpMM "
+                      f"{lib:.4f} ms")
+    return result
 
 
 def main_path_phase(matrices) -> dict:
@@ -385,10 +525,18 @@ def amg_kernel_phase(A) -> dict:
             result["max_abs_err"] = max(result["max_abs_err"], err)
             n_well += 1
             if lvl == 0 and key == "p":
+                b_ms, b_by = bound(
+                    4 * (op.vals.numel() + op.lcols.numel() + op.w0.numel()
+                         + M.ncols + M.nrows), 2 * op.vals.numel(), "f32")
+                lib = library_ms(M, torch.float32, x)
                 result.update(ms=ms, plain_ms=plain_ms, launch_ms=launch_ms,
                               shape=f"poisson_2d(512) RCM amg_classical "
                                     f"{label}, k8={op.k8} "
-                                    f"k_real={op.k_real} J={op.j_blocks}")
+                                    f"k_real={op.k_real} J={op.j_blocks}",
+                              bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+                print(f"  bound {b_ms:.4f} ms ({b_by}), CSR bound "
+                      f"{csr_bound_ms(M, 4):.4f} ms, cuSPARSE "
+                      f"{lib:.4f} ms")
     check("ms" in result, "level-0 P is not window-ELL")
     print(f"  {n_well} window-ELL operators checked")
     del params
@@ -485,6 +633,107 @@ def amg_paths_phase(tmp: str, A512, A128) -> list[dict]:
     return counts
 
 
+def multi_rhs_paths_phase(tmp: str, matrices, A128) -> list[dict]:
+    """Block CG and batched BiCGSTAB (`--nrhs 8`), one-RHS ginkgo, and
+    block CG on the card against `--platform cpu`; returns each path's
+    launch counts."""
+    from lsbench_tpu_torch.matrix.io import write_matrix
+    from lsbench_tpu_torch.solvers.batched_bicgstab import (
+        BatchedBicgstabSolver)
+
+    files = {}
+    for label, A in (*matrices.items(), ("poisson_2d(128)", A128)):
+        files[label] = os.path.join(tmp, label.split("(")[0]
+                                    + f"_{A.nrows}.txt")
+        write_matrix(A, files[label])
+    counts = []
+    block = ["--solver", "cg", "--nrhs", "8", "--ordering", "rcm", "--rtol",
+             "1e-10", "--trials", "1", "--warmups", "1", "--json"]
+    for label in matrices:
+        t0 = time.perf_counter()
+        rec, ran, wall = cli_path(f"block-cg {label}", files[label], block)
+        check(rec["solver"] == "block_cg" and rec["nrhs"] == 8,
+              f"block-cg {label}: solver {rec['solver']} nrhs "
+              f"{rec.get('nrhs')}")
+        check(rec["converged"] is True and rec["true_relres"] <= 1e-10,
+              f"block-cg {label}: converged {rec['converged']} true_relres "
+              f"{rec['true_relres']:.3e}")
+        for k in ("bsr_mm_f32", "bsr_f64acc"):
+            check(ran[k] > 0, f"block-cg {label}: kernel {k} never launched")
+        print(f"block-cg path {label} (--nrhs 8): block iters={rec['iters']}"
+              f" passes={rec['refine_passes']} method={rec['method']} "
+              f"precision={rec['precision']} "
+              f"true_relres={rec['true_relres']:.3e} "
+              f"setup_s={rec['setup_s']:.3f} solve_s={rec['solve_s']:.4f} "
+              f"per-RHS ms={rec['solve_s'] / 8 * 1e3:.3f} "
+              f"first_call_s={rec['first_call_s']:.3f} cli_wall_s={wall:.2f} "
+              f"launches={ran} phase_s={time.perf_counter() - t0:.2f}")
+        counts.append(ran)
+
+    t0 = time.perf_counter()
+    label = "poisson_2d(512)"
+    rec, ran, wall = cli_path(
+        "ginkgo --nrhs 8", files[label],
+        ["--solver", "ginkgo", "--nrhs", "8", "--ordering", "rcm",
+         "--trials", "1", "--warmups", "1", "--json"])
+    check(rec["solver"] == "batched_bicgstab" and rec["nrhs"] == 8,
+          f"ginkgo --nrhs 8: solver {rec['solver']}")
+    check(rec["converged"] is True and rec["true_relres"] <= 1e-4,
+          f"ginkgo --nrhs 8: true_relres {rec['true_relres']:.3e}")
+    check(ran["bsr_mm_f32"] > 0, "ginkgo --nrhs 8: K3 never launched")
+    max_refine = inspect.signature(BatchedBicgstabSolver).parameters[
+        "max_refine"].default
+    print(f"ginkgo path {label} (--nrhs 8, batched BiCGSTAB): "
+          f"iters={rec['iters']} passes={rec['refine_passes']} of "
+          f"max_refine={max_refine} "
+          f"true_relres={rec['true_relres']:.3e} setup_s={rec['setup_s']:.3f}"
+          f" solve_s={rec['solve_s']:.4f} per-RHS ms="
+          f"{rec['solve_s'] / 8 * 1e3:.3f} cli_wall_s={wall:.2f} "
+          f"launches={ran} phase_s={time.perf_counter() - t0:.2f}")
+    counts.append(ran)
+
+    t0 = time.perf_counter()
+    label = "random_spd(6408,23)"
+    rec, ran, wall = cli_path(
+        "ginkgo", files[label], ["--solver", "ginkgo", "--ordering", "rcm",
+                                 "--trials", "2", "--warmups", "1", "--json"])
+    check(rec["precision"] == "fp64(fp32_ir_auto)",
+          f"ginkgo: precision {rec['precision']}")
+    check(rec["converged"] is True and rec["true_relres"] <= 1e-4,
+          f"ginkgo: true_relres {rec['true_relres']:.3e}")
+    check(ran["bsr_f32"] + ran["bsr_classed_f32"] > 0 and ran["bsr_f64acc"] > 0,
+          f"ginkgo: kernels {ran}")
+    print(f"ginkgo path {label} (one RHS, bicgstab_ir): iters={rec['iters']}"
+          f" passes={rec['refine_passes']} precision={rec['precision']} "
+          f"true_relres={rec['true_relres']:.3e} solve_s={rec['solve_s']:.5f}"
+          f" launches={ran} phase_s={time.perf_counter() - t0:.2f}")
+    counts.append(ran)
+
+    t0 = time.perf_counter()
+    small = ["--solver", "cg", "--nrhs", "4", "--ordering", "rcm", "--rtol",
+             "1e-10", "--trials", "1", "--warmups", "1", "--json"]
+    f128 = files["poisson_2d(128)"]
+    rec_dev, ran, _ = cli_path("block-cg 128 cuda", f128, small)
+    counts.append(ran)
+    rec_cpu, ran_cpu, _ = cli_path("block-cg 128 cpu", f128,
+                                   small + ["--platform", "cpu"])
+    check(sum(ran_cpu.values()) == 0, f"--platform cpu launched {ran_cpu}")
+    for where, rec in (("card", rec_dev), ("cpu", rec_cpu)):
+        check(rec["converged"] is True and rec["true_relres"] <= 1e-10,
+              f"block-cg poisson_2d(128) {where}: true_relres "
+              f"{rec['true_relres']:.3e}")
+    a, b = rec_dev["iters"], rec_cpu["iters"]
+    check(abs(a - b) <= max(3, 0.1 * b),
+          f"block-cg poisson_2d(128): {a} block iterations on the card, "
+          f"{b} with the plain versions")
+    print(f"block-cg poisson_2d(128) --nrhs 4: card {a} block iters / "
+          f"{rec_dev['refine_passes']} passes, true_relres "
+          f"{rec_dev['true_relres']:.3e}; plain (cpu) {b} / "
+          f"{rec_cpu['refine_passes']}, {rec_cpu['true_relres']:.3e} "
+          f"phase_s={time.perf_counter() - t0:.2f}")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -513,6 +762,11 @@ def main() -> int:
         path_counts += amg_paths_phase(tmp, matrices["poisson_2d(512)"],
                                        poisson_2d(128))
     print(f"phase amg paths: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path_counts += multi_rhs_paths_phase(tmp, matrices, poisson_2d(128))
+    print(f"phase multi-rhs paths: {time.perf_counter() - t0:.2f} s")
+    check(len(path_counts) == len(PATHS), "one launch count per path")
 
     kernels = []
     for name, (counter, source, replaces) in KERNELS.items():
@@ -523,9 +777,12 @@ def main() -> int:
                         "launches_by_path": [c.get(counter, 0)
                                              for c in path_counts],
                         "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-                        "plain_ms": m["plain_ms"], "shape": m["shape"],
+                        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                        "bound_by": m["bound_by"],
+                        "library_ms": m["library_ms"], "shape": m["shape"],
                         **({"kernel_alone_ms": m["launch_ms"]}
                            if "launch_ms" in m else {})})
+    print("paths: " + json.dumps(PATHS))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 
 A sparse linear-solver library and benchmark harness for one NVIDIA H100:
 the reference's COO matrices are read into a host CSR, reordered (RCM),
-laid out as 8×128 block-sparse rows, and solved by CG or by mixed-precision
-CG with f64 iterative refinement, whose SpMVs are hand-written CUDA kernels
-(`csrc/bsr_spmv.cu`). Modules mirror `lsbench_tpu/` one for one; this
+laid out as 8×128 block-sparse rows, and solved by CG, BiCGSTAB, AMG or
+their mixed-precision forms with f64 iterative refinement, one right-hand
+side or k at once (block CG, batched BiCGSTAB), whose SpMVs and SpMMs are
+hand-written CUDA kernels (`csrc/*.cu`). Modules mirror `lsbench_tpu/` one for one; this
 package imports neither jax nor `lsbench_tpu`, holds no global dtype or
 device state, and takes the device explicitly at every layout constructor
 and solver.

@@ -52,11 +52,24 @@ class BenchRecord:
             "setup_s": self.setup_s, "solve_s": self.solve_s,
             "iters": self.iters, "relres": self.relres,
             "converged": self.converged, "precision": self.precision,
-            "nnz_per_s": (self.nnz * max(self.iters, 1)) / self.solve_s
+            "nnz_per_s": (self.nnz * max(self.iters, 1)
+                          * self.extra.get("nrhs", 1)) / self.solve_s
             if self.solve_s > 0 else None,
         }
         d.update(self.extra)
         return d
+
+
+def reference_rhs(n: int, nrhs: int = 1) -> np.ndarray:
+    """The reference RHS r[i] = i (lsbench.c:158-160). For nrhs > 1 (an
+    extension: lsbench is single-RHS) column 0 is that vector and the other
+    columns are seeded pseudo-random, the JAX CLI's `--nrhs` block."""
+    b = np.arange(n, dtype=np.float64)
+    if nrhs == 1:
+        return b
+    rng = np.random.default_rng(0)
+    return np.column_stack([b] + [rng.standard_normal(n)
+                                  for _ in range(nrhs - 1)])
 
 
 def run_bench(
@@ -116,8 +129,12 @@ def run_bench(
 
 
 def _relative_residual(A: CsrMatrix, x, b) -> float:
-    """Host-side f64 ||b - Ax|| / ||b|| — independent of the device path."""
+    """Host-side f64 ||b - Ax|| / ||b|| — independent of the device path.
+    For multi-RHS (2-D) solves, the worst column's."""
     xh, bh = to_numpy(x), to_numpy(b)
+    if xh.ndim == 2:
+        return max(_relative_residual(A, xh[:, j], bh[:, j])
+                   for j in range(xh.shape[1]))
     bn = float(np.linalg.norm(bh))
     if bn == 0.0:
         return 0.0

@@ -22,10 +22,10 @@ import json
 import sys
 import time
 
-import numpy as np
 import torch
 
-from lsbench_tpu_torch.harness.bench import BenchRecord, run_bench
+from lsbench_tpu_torch.harness.bench import (BenchRecord, reference_rhs,
+                                             run_bench)
 from lsbench_tpu_torch.matrix.io import MatrixFormatError, read_matrix
 from lsbench_tpu_torch.solvers.base import get_solver, list_solvers
 
@@ -75,7 +75,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="override preconditioner "
                         "(none|jacobi|amg|amg_classical)")
     p.add_argument("--nrhs", type=int, default=1,
-                   help="right-hand sides per solve (only 1 is ported)")
+                   help="solve this many right-hand sides at once (cg "
+                        "family routes to block_cg, bicgstab/ginkgo to "
+                        "batched_bicgstab; column 0 is the reference RHS "
+                        "r[i]=i, extras are seeded random)")
     p.add_argument("--json", action="store_true", help="emit a JSON record after the CSV line")
     p.add_argument("--platform", default="cuda",
                    help="cuda (default; exits 1 without a CUDA device) | "
@@ -146,10 +149,6 @@ def main(argv=None) -> int:
             print(f"{flag} is not yet ported to lsbench_tpu_torch "
                   "(see ROADMAP.md).", file=sys.stderr)
             return 1
-    if args.nrhs != 1:
-        print("--nrhs other than 1 is not yet ported to lsbench_tpu_torch "
-              "(see ROADMAP.md).", file=sys.stderr)
-        return 1
     platform = args.platform.lower()
     if platform not in ("cuda", "cpu"):
         print(f"Unsupported platform '{args.platform}' (cuda | cpu).",
@@ -178,19 +177,47 @@ def main(argv=None) -> int:
         print(f"matrix {args.matrix}: n={A.nrows} nnz={A.nnz} "
               f"({A.nnz / A.nrows:.1f} nnz/row)", file=sys.stderr)
 
-    # RHS r[i] = i (lsbench.c:158-160).
-    b = np.arange(A.nrows, dtype=np.float64)
+    b = reference_rhs(A.nrows, max(args.nrhs, 1))
+    if args.nrhs > 1:
+        # Routed by the resolved solver (ginkgo is judged as bicgstab).
+        resolved_cls, _ = get_solver(solver_name)
+        if resolved_cls.name in ("cg", "cg_ir"):
+            solver_name = "block_cg"
+            if precision == "fp64":
+                print("nrhs: cg with multiple RHS runs as block_cg "
+                      "(f32 SpMM inner + f64 refinement, mode "
+                      "fp32_ir).", file=sys.stderr)
+        elif resolved_cls.name == "bicgstab":
+            # k independent BiCGSTAB recurrences batched on one SpMM per
+            # half-step (block CG would share a Krylov space across
+            # unrelated RHS).
+            solver_name = "batched_bicgstab"
+            print("nrhs: bicgstab/ginkgo with multiple RHS runs as "
+                  "batched BiCGSTAB (f32 SpMM inner + f64 refinement, "
+                  "mode fp32_ir).", file=sys.stderr)
+        elif resolved_cls.name not in ("block_cg", "batched_bicgstab"):
+            print(f"--nrhs > 1 is implemented for the cg family "
+                  f"(block_cg), bicgstab/ginkgo (batched BiCGSTAB), and "
+                  f"the dense Cholesky family (cholmod/cusolver: "
+                  f"X = A⁻¹B as one MXU GEMM per refinement pass); "
+                  f"got '{solver_name}' (for gmres run one RHS per "
+                  f"solve).", file=sys.stderr)
+            return 1
 
     cls, params = get_solver(solver_name)
     if precision == "fp32_ir":
-        # Remap the resolved target onto its iterative-refinement twin.
-        ir_map = {"cg": "cg_ir"}
+        # Remap the resolved target (so alias presets such as ginkgo's
+        # rtol=1e-4/jacobi survive) onto its iterative-refinement twin.
+        ir_map = {"cg": "cg_ir", "bicgstab": "bicgstab_ir"}
         target = ir_map.get(cls.name, cls.name)
-        if not target.endswith("_ir"):
+        if target not in ("block_cg", "batched_bicgstab") \
+                and not target.endswith("_ir"):
             # AMG (amg, hypre, amgx, paralmond) runs its fp64 converge
-            # mode as f32 cycles + f64 refinement already.
+            # mode as f32 cycles + f64 refinement already; block_cg and
+            # batched_bicgstab are their own IR form.
             print(f"Precision 'fp32_ir' is only implemented for the cg "
-                  f"solver family (got '{solver_name}').", file=sys.stderr)
+                  f"and bicgstab solver families (got '{solver_name}').",
+                  file=sys.stderr)
             return 1
         cls, _ = get_solver(target)
         if solver_name in ir_map:

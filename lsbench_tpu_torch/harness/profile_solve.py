@@ -1,10 +1,11 @@
-"""Device-time breakdown of one cg_ir solve on a CUDA card.
+"""Device-time breakdown of one solve on a CUDA card.
 
     python -m lsbench_tpu_torch.harness.profile_solve [--out FILE]
 
 For each case (RCM-ordered poisson_2d(512) and random_spd(6408, 23) with
 the Jacobi preconditioner, and poisson_2d(512) with `amg_classical`; cg_ir,
-rtol 1e-10, b[i] = i — the solves chip_smoke.py drives through the CLI):
+rtol 1e-10, b[i] = i; then block CG on RCM poisson_2d(512) with `--nrhs 8`'s
+right-hand sides — the solves chip_smoke.py drives through the CLI):
 
 1. set the solver up and solve once (kernel build, first launches);
 2. time 3 unprofiled solves, each fenced with `torch.cuda.synchronize`;
@@ -20,7 +21,9 @@ set against the unprofiled wall time of the same process. With the Jacobi
 preconditioner, `spmv_ms` is the inner f32 SpMV kernel's device time per CG
 iteration (one SpMV each), and `spmv_gbps` the operator's stored blocks
 streamed in that time; with AMG the same kernels also run inside the
-V-cycle, so those two are left out.
+V-cycle, so those two are left out. `groups` sums the device time by kind
+of kernel (K1-K5, QR, eigh, GEMM, PyTorch's elementwise and reduction
+kernels, copies) by substrings of the kernel names (`GROUPS`).
 
 Prints one JSON object per matrix; `--out` also writes them, with the full
 per-kernel table, to a file. Raises if the trace holds no device events.
@@ -35,15 +38,42 @@ import statistics
 import tempfile
 import time
 
-import numpy as np
 import torch
 
+from lsbench_tpu_torch.harness.bench import reference_rhs
 from lsbench_tpu_torch.matrix.generate import poisson_2d, random_spd
+from lsbench_tpu_torch.solvers.block_cg import BlockCgSolver
 from lsbench_tpu_torch.solvers.refine import CgIrSolver
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # Substrings of the inner f32 SpMV kernels' names in the trace.
 INNER_KERNELS = ("spmv_bsr_f32_kernel", "spmv_bsr_classed_f32_kernel")
+# Kind of kernel → substrings of its names (lower case), first match wins.
+GROUPS = (
+    ("K3 spmm_bsr", ("spmm_bsr_f32_kernel",)),
+    ("K2 f64acc", ("spmv_bsr_f64acc_kernel",)),
+    ("K1/K5 spmv", INNER_KERNELS),
+    ("K4 well", ("spmv_well",)),
+    ("eigh", ("syev", "stedc", "sytrd", "steqr", "eigh")),
+    ("QR", ("geqr", "orgqr", "ormqr", "larf", "householder")),
+    ("cuSOLVER other", ("cusolver", "potrf", "trsm", "trsv", "lacpy",
+                        "batch_eye", "copy_info")),
+    ("cuBLAS GEMM/dot", ("gemm", "gemv", "xmma", "cutlass", "dot_kernel",
+                         "splitkreduce", "reduce_1block")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "index",
+                     "where", "fill")),
+    ("reduction", ("reduce",)),
+)
+
+
+def kernel_group(name: str, cat: str) -> str:
+    if cat != "kernel":
+        return cat
+    low = name.lower()
+    for group, keys in GROUPS:
+        if any(k.lower() in low for k in keys):
+            return group
+    return "other"
 
 
 def _timed_solve(solver, b) -> tuple[float, object]:
@@ -72,11 +102,12 @@ def _union_us(events: list[dict]) -> float:
     return total
 
 
-def profile_matrix(label: str, A, device, precond: str = "jacobi") -> dict:
-    b = torch.as_tensor(np.arange(A.nrows, dtype=np.float64), device=device)
+def profile_matrix(label: str, A, device, precond: str = "jacobi",
+                   nrhs: int = 1) -> dict:
+    b = torch.as_tensor(reference_rhs(A.nrows, nrhs), device=device)
     t0 = time.perf_counter()
-    solver = CgIrSolver(A, rtol=1e-10, ordering="rcm", precond=precond,
-                        device=device)
+    solver = (BlockCgSolver if nrhs > 1 else CgIrSolver)(
+        A, rtol=1e-10, ordering="rcm", precond=precond, device=device)
     setup_s = time.perf_counter() - t0
     _timed_solve(solver, b)
     walls, res = [], None
@@ -105,15 +136,26 @@ def profile_matrix(label: str, A, device, precond: str = "jacobi") -> dict:
         d["count"] += 1
     table = sorted(({"name": k, **v} for k, v in by_name.items()),
                    key=lambda d: -d["device_ms"])
+    groups: dict[str, dict] = {}
+    for d in table:
+        g = groups.setdefault(kernel_group(d["name"], d["cat"]),
+                              {"device_ms": 0.0, "count": 0})
+        g["device_ms"] += d["device_ms"]
+        g["count"] += d["count"]
     busy_s = _union_us(events) / 1e6
     out = {
-        "matrix": label, "precond": precond, "n": A.nrows, "nnz": A.nnz,
-        "iters": res.iters, "passes": res.extra["refine_passes"],
+        "matrix": label, "precond": precond, "nrhs": nrhs, "n": A.nrows,
+        "nnz": A.nnz, "iters": res.iters,
+        "passes": res.extra["refine_passes"],
         "inner_op": type(solver._op).__name__, "setup_s": setup_s,
         "wall_s": wall_s, "walls_s": walls, "profiled_wall_s": prof_wall,
         "busy_s": busy_s, "idle_share": 1.0 - busy_s / wall_s,
+        "groups": dict(sorted(groups.items(),
+                              key=lambda kv: -kv[1]["device_ms"])),
     }
-    if precond == "jacobi":
+    if nrhs > 1:
+        out["wall_ms_per_iter"] = wall_s * 1e3 / max(res.iters, 1)
+    elif precond == "jacobi":
         inner_ms = sum(d["device_ms"] for d in table
                        if any(k in d["name"] for k in INNER_KERNELS))
         spmv_ms = inner_ms / max(res.iters, 1)
@@ -135,11 +177,12 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
     results = []
     p512 = poisson_2d(512)
-    for label, A, precond in (("poisson_2d(512)", p512, "jacobi"),
-                              ("random_spd(6408,23)", random_spd(6408, 23),
-                               "jacobi"),
-                              ("poisson_2d(512)", p512, "amg_classical")):
-        r = profile_matrix(label, A, device, precond)
+    for label, A, precond, nrhs in (
+            ("poisson_2d(512)", p512, "jacobi", 1),
+            ("random_spd(6408,23)", random_spd(6408, 23), "jacobi", 1),
+            ("poisson_2d(512)", p512, "amg_classical", 1),
+            ("poisson_2d(512)", p512, "jacobi", 8)):
+        r = profile_matrix(label, A, device, precond, nrhs)
         results.append(r)
         top = r["kernels"][:8]
         print(json.dumps({k: v for k, v in r.items() if k != "kernels"}))

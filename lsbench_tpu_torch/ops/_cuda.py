@@ -29,7 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = {
     "bsr_spmv": (("lsb_spmv_bsr_f32", 4, 2),
                  ("lsb_spmv_bsr_classed_f32", 5, 2),
-                 ("lsb_spmv_bsr_f64acc", 5, 2)),
+                 ("lsb_spmv_bsr_f64acc", 5, 2),
+                 ("lsb_spmm_bsr_f32", 4, 3)),
     "well_spmv": (("lsb_spmv_well_f32", 5, 2),),
 }
 

@@ -7,6 +7,7 @@ Counterpart of `lsbench_tpu/ops/spmv_pallas.py`, with its public signatures:
     spmv_bsr_classed(A, x)             K5  f32, class-padded BsrClassed
     spmv_bsr_df64(A, x)                K2  f64-accurate, BsrDf64 (hi, lo)
     spmv_bsr_df64_lo(A, blocks_lo, x)  K2  hi from the f32 BsrMatrix
+    spmm_bsr(A, X)                     K3  f32, k right-hand sides
 
 Dispatch: tensors on the CPU go to the `*_plain` version (gather + einsum,
 the JAX package's `matvec_reference`); tensors on one CUDA device launch
@@ -23,7 +24,8 @@ from lsbench_tpu_torch.matrix.bsr import (BC, BR, GPS, BsrClassed, BsrDf64,
                                           BsrMatrix)
 from lsbench_tpu_torch.ops import _cuda  # builds nothing until first launch
 
-LAUNCHES = {"bsr_f32": 0, "bsr_classed_f32": 0, "bsr_f64acc": 0}
+LAUNCHES = {"bsr_f32": 0, "bsr_classed_f32": 0, "bsr_f64acc": 0,
+            "bsr_mm_f32": 0}
 
 
 def reset_launches() -> None:
@@ -96,6 +98,55 @@ def spmv_bsr(A: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
     _cuda.check(rc, "spmv_bsr_f32")
     LAUNCHES["bsr_f32"] += 1
     return y.view(-1)[: A.nrows]
+
+
+# ------------------------------------------------ K3: f32, k columns
+
+def _x_table_mm(X: torch.Tensor, ncols: int, n_cb: int) -> torch.Tensor:
+    """X (ncols, k) as the f32 table (n_cb, k, 128) of the JAX package's
+    `spmm_bsr`: column j of column block cb at [cb, j, :], zero past ncols.
+    One transposing copy for the whole column blocks, one for the tail."""
+    if X.dim() != 2 or X.shape[0] != ncols or X.shape[1] < 1:
+        raise ValueError(f"X: expected shape ({ncols}, k) with k >= 1, got "
+                         f"{tuple(X.shape)}")
+    k = X.shape[1]
+    xt = torch.empty((n_cb, k, BC), dtype=torch.float32, device=X.device)
+    full = ncols // BC
+    xt[:full].copy_(X[: full * BC].reshape(full, BC, k).transpose(1, 2))
+    if full < n_cb:
+        xt[full:].zero_()
+        xt[full, :, : ncols - full * BC] = X[full * BC:].T
+    return xt
+
+
+def spmm_bsr_plain(A: BsrMatrix, X: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch Y = A @ X over uniform BSR (f32)."""
+    xt = _x_table_mm(X, A.ncols, A.n_col_blocks)
+    gathered = xt[A.block_cols.long()]                       # (G, S, k, 128)
+    blk = A.blocks.view(A.n_groups, A.slots, BR, BC)
+    Y = torch.einsum("gsrc,gskc->grk", blk, gathered)
+    return Y.reshape(-1, X.shape[1])[: A.nrows]
+
+
+def spmm_bsr(A: BsrMatrix, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X (f32) for k right-hand sides: X (ncols, k) → Y (nrows, k).
+    Every column rides the same block stream."""
+    _check(A.blocks, "blocks", torch.float32,
+           (A.n_groups, A.slots * BR, BC))
+    _check(A.block_cols, "block_cols", torch.int32, (A.n_groups, A.slots))
+    if _on_cpu(A.blocks, A.block_cols, X):
+        return spmm_bsr_plain(A, X)
+    lib = _cuda.library("bsr_spmv")
+    xt = _x_table_mm(X, A.ncols, A.n_col_blocks)
+    k = X.shape[1]
+    Y = torch.empty((A.n_groups, BR, k), dtype=torch.float32, device=X.device)
+    with torch.cuda.device(X.device):
+        rc = lib.lsb_spmm_bsr_f32(
+            A.blocks.data_ptr(), A.block_cols.data_ptr(), xt.data_ptr(),
+            Y.data_ptr(), A.n_groups, A.slots, k, _stream(X.device))
+    _cuda.check(rc, "spmm_bsr_f32")
+    LAUNCHES["bsr_mm_f32"] += 1
+    return Y.view(-1, k)[: A.nrows]
 
 
 # ------------------------------------------------------ K5: classed f32

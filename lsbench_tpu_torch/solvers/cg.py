@@ -132,7 +132,9 @@ def permutation(ordering: str, A: CsrMatrix, device):
 @register_solver("cg")
 class CgSolver(Solver):
     """Jacobi-preconditioned CG with optional RCM reordering and a BSR
-    SpMV kernel."""
+    SpMV kernel. `_loop` is the Krylov iteration (BicgstabSolver swaps it)."""
+
+    _loop = staticmethod(cg_loop)
 
     def __init__(self, A: CsrMatrix, dtype=torch.float64, precond="jacobi",
                  rtol=1e-8, maxiter=None, layout="auto", ordering="none",
@@ -160,8 +162,8 @@ class CgSolver(Solver):
     def solve(self, b) -> SolveResult:
         b = torch.as_tensor(b, device=self.device)
         bp = b if self._perm is None else b[self._perm]
-        x, iters, rnorm, bnorm = cg_loop(self._mv, self._pc, bp, self.rtol,
-                                         self.maxiter, self._dt)
+        x, iters, rnorm, bnorm = self._loop(self._mv, self._pc, bp, self.rtol,
+                                            self.maxiter, self._dt)
         if self._inv is not None:
             x = x[self._inv]
         rnorm, bnorm = float(rnorm), float(bnorm)

@@ -7,9 +7,9 @@ gains ~6 digits, so 2–4 passes reach the reference's direct-solve tolerance
 1e-10. The port takes the JAX package's TPU branch on every device, so both
 packages run the same layouts: with a uniform inner BsrMatrix the residual
 shares its hi blocks (`spmv_bsr_df64_lo`), otherwise (class-padded inner
-layout) it streams a full BsrDf64.
-
-`gmres_ir` and `bicgstab_ir` are ROADMAP Queue 1 items.
+layout) it streams a full BsrDf64. Inner methods: CG (`cg_ir`) and BiCGSTAB
+(`bicgstab_ir`, what fp64 `bicgstab` delegates to); `gmres_ir` is a ROADMAP
+Queue 1 item.
 """
 
 from __future__ import annotations
@@ -22,9 +22,25 @@ from lsbench_tpu_torch.matrix.bsr import BsrDf64, BsrMatrix
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
 from lsbench_tpu_torch.ops.spmv_bsr import spmv_bsr_df64, spmv_bsr_df64_lo
 from lsbench_tpu_torch.solvers.base import SolveResult, Solver, register_solver
+from lsbench_tpu_torch.solvers.bicgstab import bicgstab_loop
 from lsbench_tpu_torch.solvers.cg import (build_matvec, cg_loop, permutation,
                                           resolve_layout)
 from lsbench_tpu_torch.solvers.preconditioners import get_preconditioner
+
+
+def f64_residual_matvec(Ap: CsrMatrix, op, device):
+    """The f64-accurate SpMV (K2) of the refinement residual. With a uniform
+    inner BsrMatrix of the same layout, the hi array equals its blocks bit
+    for bit, so only the lo array goes to the device; otherwise a full
+    BsrDf64 is uploaded."""
+    op64 = BsrDf64.from_csr(Ap, device="cpu")
+    if (isinstance(op, BsrMatrix)
+            and op.blocks.shape == op64.blocks_hi.shape
+            and torch.equal(op.block_cols.cpu(), op64.block_cols)):
+        lo = op64.blocks_lo.to(device)
+        return lambda x: spmv_bsr_df64_lo(op, lo, x)
+    op64 = op64.to(device)
+    return lambda x: spmv_bsr_df64(op64, x)
 
 
 class KrylovIrSolver(Solver):
@@ -54,17 +70,7 @@ class KrylovIrSolver(Solver):
         t0 = time.perf_counter()
         apply32, self._op = build_matvec(Ap, self.layout, self.device)
         self._mv = lambda v: apply32(self._op, v)
-        op64 = BsrDf64.from_csr(Ap, device="cpu")
-        if (isinstance(self._op, BsrMatrix)
-                and self._op.blocks.shape == op64.blocks_hi.shape
-                and torch.equal(self._op.block_cols.cpu(), op64.block_cols)):
-            # The hi array equals the f32 operator's blocks bit for bit, so
-            # only the lo array goes to the device.
-            lo = op64.blocks_lo.to(self.device)
-            self._resid_mv = lambda x: spmv_bsr_df64_lo(self._op, lo, x)
-        else:
-            op64 = op64.to(self.device)
-            self._resid_mv = lambda x: spmv_bsr_df64(op64, x)
+        self._resid_mv = f64_residual_matvec(Ap, self._op, self.device)
         self.setup_breakdown["layout_s"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
@@ -117,5 +123,15 @@ class CgIrSolver(KrylovIrSolver):
 
     def _inner_loop(self, mv32, pc, rhs32):
         d32, inner_iters, _, _ = cg_loop(
+            mv32, pc, rhs32, self.inner_rtol, self.maxiter, torch.float32)
+        return d32, inner_iters
+
+
+@register_solver("bicgstab_ir")
+class BicgstabIrSolver(KrylovIrSolver):
+    """f32 BiCGSTAB inner solve + f64 residual refinement."""
+
+    def _inner_loop(self, mv32, pc, rhs32):
+        d32, inner_iters, _, _ = bicgstab_loop(
             mv32, pc, rhs32, self.inner_rtol, self.maxiter, torch.float32)
         return d32, inner_iters

@@ -93,6 +93,58 @@ def test_cg_ir_with_amg_classical_through_the_cli(poisson_file, capsys):
     assert rec["iters"] < 20 and rec["precision"] == "fp64"
 
 
+@pytest.mark.parametrize("solver,nrhs,routed,precision", [
+    ("cg", 3, "block_cg", "fp64(fp32_ir)"),
+    ("ginkgo", 2, "batched_bicgstab", "fp64(fp32_ir)"),
+    ("ginkgo", 1, "ginkgo", "fp64(fp32_ir_auto)"),
+])
+def test_nrhs_and_ginkgo_match_jax_cli(poisson_file, capsys, solver, nrhs,
+                                       routed, precision):
+    """`--nrhs k` routes cg to block_cg and bicgstab/ginkgo to
+    batched_bicgstab, and one-RHS ginkgo runs as bicgstab_ir, with the JAX
+    CLI's record fields; nnz_per_s counts every right-hand side."""
+    argv = ["--matrix", str(poisson_file), "--solver", solver, "--nrhs",
+            str(nrhs), "--ordering", "rcm", "--trials", "2", "--warmups",
+            "1", "--json"]
+    rc, out, err = _run(main, argv + ["--platform", "cpu"], capsys)
+    assert rc == 0, err
+    rec = json.loads(out[2])
+    assert out[1].split(",")[4] == rec["solver"] == routed
+    assert rec["precision"] == precision and rec["converged"] is True
+    assert rec.get("nrhs", 1) == nrhs and rec["device"] == "cpu"
+    assert rec["true_relres"] <= (1e-10 if solver == "cg" else 1e-4)
+    assert rec["nnz_per_s"] == pytest.approx(
+        rec["nnz"] * rec["iters"] * nrhs / rec["solve_s"])
+    j_rc, j_out, _ = _run(j_main, argv, capsys)
+    j_rec = json.loads(j_out[2])
+    assert j_rc == 0 and j_rec["solver"] == routed
+    assert j_rec.get("nrhs", 1) == nrhs and j_rec["converged"] is True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [
+    ["--solver", "bicgstab", "--precision", "fp32_ir"],
+    ["--solver", "bicgstab", "--precision", "fp32"],
+    ["--solver", "block_cg", "--nrhs", "3", "--precision", "fp32_ir"],
+    ["--solver", "batched_bicgstab", "--nrhs", "3"],
+    ["--solver", "ginkgo", "--nrhs", "3", "--precision", "fp32_ir"],
+])
+def test_krylov_cli_on_card(poisson_file, capsys, extra):
+    """The BiCGSTAB and multi-RHS solver spellings through the CLI on the
+    card: each converges and launches kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from lsbench_tpu_torch.ops.spmv_bsr import LAUNCHES, reset_launches
+    reset_launches()
+    rc, out, err = _run(main, ["--matrix", str(poisson_file), "--ordering",
+                               "rcm", "--trials", "1", "--warmups", "1",
+                               "--json", *extra], capsys)
+    assert rc == 0, err
+    rec = json.loads(out[2])
+    assert rec["converged"] is True and rec["device"] != "cpu"
+    assert sum(LAUNCHES.values()) > 0
+
+
 def test_rejects_fp16(tiny_matrix_file, capsys):
     rc, out, err = _run(main, ["--matrix", str(tiny_matrix_file),
                                "--precision", "fp16", "--platform", "cpu"],
@@ -120,7 +172,8 @@ def test_missing_or_malformed_file(tmp_path, capsys, content):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--devices", "2"], ["--mesh", "2x4"], ["--nrhs", "2"], ["--roofline"],
+    ["--devices", "2"], ["--mesh", "2x4"], ["--solver", "hypre", "--nrhs", "2"],
+    ["--roofline"],
     ["--profile-dir", "prof"], ["--cache"], ["--cache-dir", "c"],
     ["--coordinator", "localhost:1234"], ["--debug-nans"],
     ["--ordering", "amd"], ["--ordering", "metis"], ["--precond", "ic0"],
@@ -131,7 +184,10 @@ def test_unported_flags_exit_1(tiny_matrix_file, capsys, flags):
             "--platform", "cpu", *flags]
     rc, out, err = _run(main, argv, capsys)
     assert rc == 1 and not out
-    assert "not yet ported" in err or "Unsupported platform" in err
+    # --nrhs > 1 with a solver of neither the cg nor the bicgstab family is
+    # refused as by the JAX CLI (test_block_cg.py::test_cli_nrhs_rejects_non_cg).
+    assert ("not yet ported" in err or "Unsupported platform" in err
+            or "--nrhs > 1 is implemented for" in err)
 
 
 def test_invalid_ordering_defaults_to_amd_which_is_refused(tiny_matrix_file,
