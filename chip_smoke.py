@@ -43,6 +43,17 @@ Phases, each of which raises (exit code 1) on failure:
    then `--solver cg --nrhs 4` on poisson_2d(128) on the card and with
    `--platform cpu`: both reach 1e-10 within max(3, 10%) block iterations
    of each other, and the CPU run launches nothing.
+9. Alternate SpMV kernels K6 (exact-block `spmv_bsr_compact`), K7
+   (`spmv_bsr(variant="selector")`) and K8 (`variant="onehot"`), which no
+   solver path runs: first their API path (each public entry called once
+   on RCM poisson_2d(512) and random_spd(6408, 23), each result within
+   2e-5·max|y| of the host f64 CSR matvec), then each kernel against its
+   plain version (within 1e-5·max|y|) with the median CUDA-event times,
+   bounds and cuSPARSE's time. The 1.34 GB selector is freed after it.
+10. The XLA-only layouts through the CLI: `cg_ir --opt layout=ell` on
+   poisson_2d(512) (true relres ≤ 1e-10 through K2, with no K1 or K5
+   launch) and fp64 `cg --opt layout=bsr_xla` on random_spd(6408, 23)
+   (≤ 1e-10).
 
 Each path's launch counts are read from counters set to 0 just before it.
 Beside each kernel's times the record carries its bound (`bound_ms`: the
@@ -72,6 +83,7 @@ import numpy as np
 
 BSR_SOURCE = "lsbench_tpu_torch/csrc/bsr_spmv.cu"
 WELL_SOURCE = "lsbench_tpu_torch/csrc/well_spmv.cu"
+VARIANTS_SOURCE = "lsbench_tpu_torch/csrc/bsr_variants.cu"
 # Kernel name → (launch counter, source, TPU kernel it replaces).
 KERNELS = {
     "spmv_bsr_f32": ("bsr_f32", BSR_SOURCE,
@@ -84,13 +96,22 @@ KERNELS = {
                       "lsbench_tpu/ops/interp_pallas.py:139"),
     "spmm_bsr_f32": ("bsr_mm_f32", BSR_SOURCE,
                      "lsbench_tpu/ops/spmv_pallas.py:255"),
+    "spmv_bsr_compact_f32": ("bsr_compact_f32", VARIANTS_SOURCE,
+                             "lsbench_tpu/ops/spmv_pallas.py:543"),
+    "spmv_bsr_selector_f32": ("bsr_selector_f32", VARIANTS_SOURCE,
+                              "lsbench_tpu/ops/spmv_pallas.py:135"),
+    "spmv_bsr_onehot_f32": ("bsr_onehot_f32", VARIANTS_SOURCE,
+                            "lsbench_tpu/ops/spmv_pallas.py:27"),
 }
 # The main-path runs whose launch counts the record lists, in order.
 PATHS = ("cg_ir poisson_2d(512) + random_spd(6408,23)",
          "cg_ir amg_classical poisson_2d(512)", "hypre poisson_2d(512)",
          "hypre poisson_2d(128)", "cg --nrhs 8 poisson_2d(512)",
          "cg --nrhs 8 random_spd(6408,23)", "ginkgo --nrhs 8 poisson_2d(512)",
-         "ginkgo random_spd(6408,23)", "cg --nrhs 4 poisson_2d(128)")
+         "ginkgo random_spd(6408,23)", "cg --nrhs 4 poisson_2d(128)",
+         "spmv variants API poisson_2d(512) + random_spd(6408,23)",
+         "cg_ir --opt layout=ell poisson_2d(512)",
+         "cg --opt layout=bsr_xla random_spd(6408,23)")
 # H100 SXM data sheet: HBM3 rate, and peak rates outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
@@ -734,6 +755,154 @@ def multi_rhs_paths_phase(tmp: str, matrices, A128) -> list[dict]:
     return counts
 
 
+def variant_kernels_phase(matrices) -> tuple[dict, dict]:
+    """K6, K7 and K8 on the RCM layouts of both matrices. Returns the record
+    entries (times at poisson_2d(512)) and the launch counts of the API
+    path: one call of each public entry per matrix, counters set to 0 just
+    before and read just after."""
+    import torch
+
+    from lsbench_tpu_torch.matrix.bsr import BsrCompact, BsrMatrix
+    from lsbench_tpu_torch.ops import spmv_bsr as ops
+    from lsbench_tpu_torch.ordering import rcm_ordering
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    layouts = {}
+    for label, A in matrices.items():
+        P = A.permuted(rcm_ordering(A))
+        t0 = time.perf_counter()
+        B = BsrMatrix.from_csr(P, device=dev, with_sel=True)
+        C = BsrCompact.from_csr(P, device=dev)
+        torch.cuda.synchronize()
+        x_np = rng.standard_normal(P.ncols)
+        layouts[label] = (P, B, C, x_np, torch.as_tensor(
+            x_np, dtype=torch.float32, device=dev))
+        print(f"variant layouts {label} RCM: uniform G={B.n_groups} "
+              f"S={B.slots} C={B.n_col_blocks} ({B.bytes_streamed} B blocks,"
+              f" {B.sel.numel() * 4} B selector), exact T={C.n_blocks} "
+              f"({C.bytes_streamed} B) built in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+    entries = {  # kernel → (public entry, plain version, layout index)
+        "spmv_bsr_compact_f32": (ops.spmv_bsr_compact,
+                                 ops.spmv_bsr_compact_plain, 2),
+        "spmv_bsr_selector_f32": (
+            lambda B, x: ops.spmv_bsr(B, x, variant="selector"),
+            ops.spmv_bsr_selector_plain, 1),
+        "spmv_bsr_onehot_f32": (
+            lambda B, x: ops.spmv_bsr(B, x, variant="onehot"),
+            ops.spmv_bsr_onehot_plain, 1),
+    }
+    reset_counts()
+    api_out = {(label, name): fn(lay[idx], lay[4])
+               for label, lay in layouts.items()
+               for name, (fn, _, idx) in entries.items()}
+    torch.cuda.synchronize()
+    api_counts = read_counts()
+    for name in entries:
+        check(api_counts[KERNELS[name][0]] == len(layouts),
+              f"{name}: API path launches {api_counts}")
+    host_errs = {}
+    for (label, name), y in api_out.items():
+        P, x_np = layouts[label][0], layouts[label][3]
+        y_host = P.matvec(x_np)
+        check(y.shape == (P.nrows,) and bool(torch.isfinite(y).all()),
+              f"{name} [{label}]: bad output")
+        host_err = float(np.abs(y.double().cpu().numpy() - y_host).max())
+        host_tol = 2e-5 * float(np.abs(y_host).max())
+        check(host_err <= host_tol, f"{name} [{label}]: max|kernel - host "
+                                    f"f64| = {host_err:.3e} > {host_tol:.3e}")
+        host_errs[label, name] = host_err
+    del api_out
+    print(f"spmv variants API path: launches={api_counts}")
+
+    results = {}
+    for label, (P, B, C, x_np, x) in layouts.items():
+        lib = library_ms(P, torch.float32, x)
+        sel_bytes = B.sel.numel() * 4
+        io_bytes = (P.ncols + P.nrows) * 4
+        # Each function's bytes: the arrays its kernel reads, x read and y
+        # written once; 2 flops per stored block element (the gathers are
+        # exact selections, not products).
+        work = {
+            "spmv_bsr_compact_f32": (
+                C.bytes_streamed + 4 * (C.bcols.numel() + C.goff.numel()),
+                C.blocks.numel(), "compact"),
+            "spmv_bsr_selector_f32": (B.bytes_streamed + sel_bytes,
+                                      B.blocks.numel(), "uniform + selector"),
+            "spmv_bsr_onehot_f32": (B.bytes_streamed
+                                    + 4 * B.block_cols.numel(),
+                                    B.blocks.numel(), "uniform"),
+        }
+        for name, (fn, plain, idx) in entries.items():
+            op = (P, B, C)[idx]
+            y_k, y_p = fn(op, x), plain(op, x)
+            torch.cuda.synchronize()
+            scale = float(y_p.abs().max())
+            err = float((y_k - y_p).abs().max())
+            tol = 1e-5 * scale
+            check(err <= tol, f"{name} [{label}]: max|kernel - plain| = "
+                              f"{err:.3e} > {tol:.3e}")
+            nbytes, elems, kind = work[name]
+            ms = median_ms(lambda: fn(op, x))
+            plain_ms = median_ms(lambda: plain(op, x))
+            b_ms, b_by = bound(nbytes + io_bytes, 2 * elems, "f32")
+            print(f"kernel {name} [{label} RCM {kind}]: max_abs_err="
+                  f"{err:.3e} (tol {tol:.3e}) host_err="
+                  f"{host_errs[label, name]:.3e} kernel {ms:.4f} ms "
+                  f"({nbytes / ms / 1e6:.1f} GB/s of {nbytes} B) plain "
+                  f"{plain_ms:.4f} ms")
+            entry = results.setdefault(name, {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            print(f"  bound {b_ms:.4f} ms ({b_by}), CSR bound "
+                  f"{csr_bound_ms(P, 4):.4f} ms, cuSPARSE {lib:.4f} ms")
+            if label == "poisson_2d(512)":
+                entry.update(ms=ms, plain_ms=plain_ms,
+                             shape=f"{label} RCM {kind}", bound_ms=b_ms,
+                             bound_by=b_by, library_ms=lib)
+    del layouts
+    torch.cuda.empty_cache()
+    return results, api_counts
+
+
+def layout_paths_phase(tmp: str, matrices) -> list[dict]:
+    """The XLA-only layouts through the CLI: `cg_ir --opt layout=ell` on
+    poisson_2d(512) and fp64 `cg --opt layout=bsr_xla` on
+    random_spd(6408, 23); returns each path's launch counts."""
+    from lsbench_tpu_torch.matrix.io import write_matrix
+
+    counts = []
+    runs = (("poisson_2d(512)", ["--solver", "cg_ir", "--ordering", "rcm",
+                                 "--opt", "layout=ell"]),
+            ("random_spd(6408,23)", ["--solver", "cg", "--opt",
+                                     "layout=bsr_xla"]))
+    for label, argv in runs:
+        t0 = time.perf_counter()
+        fname = os.path.join(tmp, label.split("(")[0] + "_layout.txt")
+        write_matrix(matrices[label], fname)
+        rec, ran, wall = cli_path(
+            f"{argv[1]} {argv[-1]} {label}", fname,
+            [*argv, "--rtol", "1e-10", "--trials", "1", "--warmups", "1",
+             "--json"])
+        check(rec["converged"] is True and rec["true_relres"] <= 1e-10,
+              f"{argv[-1]} {label}: converged {rec['converged']} "
+              f"true_relres {rec['true_relres']:.3e}")
+        if argv[-1] == "layout=ell":
+            check(ran["bsr_f64acc"] > 0, f"{label}: K2 never launched")
+            check(ran["bsr_f32"] == ran["bsr_classed_f32"] == 0,
+                  f"{label}: K1/K5 launched with the ELL layout: {ran}")
+        print(f"{argv[1]} --opt {argv[-1]} path {label}: "
+              f"iters={rec['iters']} passes={rec.get('refine_passes')} "
+              f"precision={rec['precision']} "
+              f"true_relres={rec['true_relres']:.3e} "
+              f"setup_s={rec['setup_s']:.3f} solve_s={rec['solve_s']:.4f} "
+              f"cli_wall_s={wall:.2f} launches={ran} "
+              f"phase_s={time.perf_counter() - t0:.2f}")
+        counts.append(ran)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -766,6 +935,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         path_counts += multi_rhs_paths_phase(tmp, matrices, poisson_2d(128))
     print(f"phase multi-rhs paths: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    variants, api_counts = variant_kernels_phase(matrices)
+    measured.update(variants)
+    path_counts.append(api_counts)
+    print(f"phase spmv variants: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path_counts += layout_paths_phase(tmp, matrices)
+    print(f"phase layout paths: {time.perf_counter() - t0:.2f} s")
     check(len(path_counts) == len(PATHS), "one launch count per path")
 
     kernels = []

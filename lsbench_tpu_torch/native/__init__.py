@@ -1,10 +1,9 @@
 """Native (C++) host components, loaded via ctypes.
 
-The sources are the JAX package's own (`lsbench_tpu/native/*.cpp`), compiled
-by path with g++ into this package's `_build/` directory on first use —
-never copied, and never through `lsbench_tpu.native` (importing
-`lsbench_tpu` imports jax). Every entry point has a NumPy fallback, so the
-port works without a toolchain.
+The sources are this package's own copies of the JAX package's native
+code (`native/reader.cpp`, `native/spgemm.cpp`), compiled with g++ into
+this package's `_build/` directory on first use. Every entry point has a
+NumPy fallback, so the port works without a toolchain.
 """
 
 from __future__ import annotations
@@ -15,7 +14,7 @@ import tempfile
 import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC_DIR = os.path.join(os.path.dirname(_PKG), "lsbench_tpu", "native")
+SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "_build")
 _LOCK = threading.Lock()
 

@@ -1,4 +1,4 @@
-"""ctypes binding for the native COO reader (`lsbench_tpu/native/reader.cpp`)."""
+"""ctypes binding for the native COO reader (`native/reader.cpp`)."""
 
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""ctypes binding for the native Gustavson SpGEMM (`lsbench_tpu/native/spgemm.cpp`)."""
+"""ctypes binding for the native Gustavson SpGEMM (`native/spgemm.cpp`)."""
 
 from __future__ import annotations
 

@@ -2,7 +2,8 @@
 
 nvcc compiles each source into its own shared library with a plain C
 interface in `lsbench_tpu_torch/_build/`, at first use and again whenever
-the source is newer than its library; ctypes loads it. This takes seconds,
+the source or a shared header (`csrc/*.cuh`) is newer than its library;
+ctypes loads it. This takes seconds,
 where a PyTorch C++ extension that includes torch's headers takes minutes.
 `build()` starts one nvcc per stale source, all at once. Nothing here runs
 at import: the CPU-only test environment has no nvcc.
@@ -11,6 +12,7 @@ at import: the CPU-only test environment has no nvcc.
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -32,6 +34,9 @@ SOURCES = {
                  ("lsb_spmv_bsr_f64acc", 5, 2),
                  ("lsb_spmm_bsr_f32", 4, 3)),
     "well_spmv": (("lsb_spmv_well_f32", 5, 2),),
+    "bsr_variants": (("lsb_spmv_bsr_compact_f32", 5, 1),
+                     ("lsb_spmv_bsr_selector_f32", 4, 3),
+                     ("lsb_spmv_bsr_onehot_f32", 4, 3)),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -59,8 +64,9 @@ def _nvcc() -> str:
 
 def _stale(stem: str) -> bool:
     lib = library_path(stem)
+    inputs = [source_path(stem), *glob.glob(os.path.join(CSRC, "*.cuh"))]
     return (not os.path.exists(lib)
-            or os.path.getmtime(lib) < os.path.getmtime(source_path(stem)))
+            or os.path.getmtime(lib) < max(map(os.path.getmtime, inputs)))
 
 
 def build(stems=None) -> str:

@@ -2,8 +2,8 @@
 `lsbench_tpu/ops/spgemm.py`).
 
 Galerkin coarse operators (RAP) are built once, on the host, during setup.
-The product is the JAX package's native Gustavson kernel
-(`lsbench_tpu/native/spgemm.cpp`, built by path) with a NumPy expansion
+The product is the native Gustavson kernel (`native/spgemm.cpp`, this
+package's copy of the JAX package's source) with a NumPy expansion
 taken only when that library cannot be built or loaded. A native product
 that fails raises: it is never hidden behind the fallback.
 """

@@ -1,31 +1,40 @@
-"""BSR SpMV on the cg_ir main path: three hand-written CUDA kernels, each
-beside its plain PyTorch version.
+"""BSR SpMV: the hand-written CUDA kernels, each beside its plain PyTorch
+version.
 
 Counterpart of `lsbench_tpu/ops/spmv_pallas.py`, with its public signatures:
 
     spmv_bsr(A, x)                     K1  f32, uniform BsrMatrix
+    spmv_bsr(A, x, variant="selector") K7  x gathered through A.sel
+    spmv_bsr(A, x, variant="onehot")   K8  x gathered through a one-hot
+                                           built in the kernel
     spmv_bsr_classed(A, x)             K5  f32, class-padded BsrClassed
     spmv_bsr_df64(A, x)                K2  f64-accurate, BsrDf64 (hi, lo)
     spmv_bsr_df64_lo(A, blocks_lo, x)  K2  hi from the f32 BsrMatrix
     spmm_bsr(A, X)                     K3  f32, k right-hand sides
+    spmv_bsr_compact(A, x)             K6  f32, exact-block BsrCompact
 
 Dispatch: tensors on the CPU go to the `*_plain` version (gather + einsum,
 the JAX package's `matvec_reference`); tensors on one CUDA device launch
-the kernel (`csrc/bsr_spmv.cu`) or raise. There is no fallback from a
-CUDA tensor to the plain version. Each kernel launch adds one to its count
-in `LAUNCHES`, so a run can show that it went through the kernels.
+the kernel (`csrc/bsr_spmv.cu`, `csrc/bsr_variants.cu` for K6–K8) or
+raise. There is no fallback from a CUDA tensor to the plain version. Each
+kernel launch adds one to its count in `LAUNCHES`, so a run can show that
+it went through the kernels. K6–K8 sit on no solver path, as in the JAX
+package: this API is their entry.
 """
 
 from __future__ import annotations
 
 import torch
 
-from lsbench_tpu_torch.matrix.bsr import (BC, BR, GPS, BsrClassed, BsrDf64,
-                                          BsrMatrix)
+from lsbench_tpu_torch.matrix.bsr import (BC, BR, GPS, BsrClassed,
+                                          BsrCompact, BsrDf64, BsrMatrix)
 from lsbench_tpu_torch.ops import _cuda  # builds nothing until first launch
+from lsbench_tpu_torch.utils.precision import full_f32
 
 LAUNCHES = {"bsr_f32": 0, "bsr_classed_f32": 0, "bsr_f64acc": 0,
-            "bsr_mm_f32": 0}
+            "bsr_mm_f32": 0, "bsr_compact_f32": 0, "bsr_selector_f32": 0,
+            "bsr_onehot_f32": 0}
+VARIANTS = ("auto", "prefetch", "selector", "onehot")
 
 
 def reset_launches() -> None:
@@ -81,8 +90,19 @@ def spmv_bsr_plain(A: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(-1)[: A.nrows]
 
 
-def spmv_bsr(A: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x (f32). x: (ncols,) → y: (nrows,)."""
+def spmv_bsr(A: BsrMatrix, x: torch.Tensor,
+             variant: str = "auto") -> torch.Tensor:
+    """y = A @ x (f32). x: (ncols,) → y: (nrows,). `variant` picks how the
+    x rows are gathered: "auto"/"prefetch" by block column index (K1),
+    "selector" through the one-hot selector `A.sel` (K7; built on first
+    use), "onehot" through a one-hot built in the kernel (K8)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown spmv_bsr variant '{variant}' (one of "
+                         f"{', '.join(VARIANTS)})")
+    if variant == "selector":
+        return _spmv_bsr_selector(A.ensure_sel(), x)
+    if variant == "onehot":
+        return _spmv_bsr_onehot(A, x)
     _check(A.blocks, "blocks", torch.float32,
            (A.n_groups, A.slots * BR, BC))
     _check(A.block_cols, "block_cols", torch.int32, (A.n_groups, A.slots))
@@ -97,6 +117,106 @@ def spmv_bsr(A: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
             y.data_ptr(), A.n_groups, A.slots, _stream(x.device))
     _cuda.check(rc, "spmv_bsr_f32")
     LAUNCHES["bsr_f32"] += 1
+    return y.view(-1)[: A.nrows]
+
+
+# ------------------------------------------- K7, K8: gathers by one-hot
+
+def _slot_rows(A: BsrMatrix, g: torch.Tensor) -> torch.Tensor:
+    """y from the gathered x rows g (G*S, 128): the slot einsum."""
+    blk = A.blocks.view(A.n_groups, A.slots, BR, BC)
+    y = torch.einsum("gsrc,gsc->gr", blk, g.view(A.n_groups, A.slots, BC))
+    return y.reshape(-1)[: A.nrows]
+
+
+def spmv_bsr_selector_plain(A: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K7: g = sel @ x_table in full f32, then the slots."""
+    xt = _x_table(x, A.ncols, A.n_col_blocks, torch.float32)
+    with full_f32():
+        g = torch.matmul(A.ensure_sel().sel, xt)
+    return _slot_rows(A, g)
+
+
+def _spmv_bsr_selector(A: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
+    G, S, C = A.n_groups, A.slots, A.n_col_blocks
+    _check(A.blocks, "blocks", torch.float32, (G, S * BR, BC))
+    _check(A.sel, "sel", torch.float32, (G * S, C))
+    if _on_cpu(A.blocks, A.sel, x):
+        return spmv_bsr_selector_plain(A, x)
+    lib = _cuda.library("bsr_variants")
+    xt = _x_table(x, A.ncols, C, torch.float32)
+    y = torch.empty((G, BR), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.lsb_spmv_bsr_selector_f32(
+            A.sel.data_ptr(), xt.data_ptr(), A.blocks.data_ptr(),
+            y.data_ptr(), G, S, C, _stream(x.device))
+    _cuda.check(rc, "spmv_bsr_selector_f32")
+    LAUNCHES["bsr_selector_f32"] += 1
+    return y.view(-1)[: A.nrows]
+
+
+def spmv_bsr_onehot_plain(A: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K8: the one-hot (G*S, C) of block_cols against the
+    column iota, its product with the x table in full f32, then the slots
+    (a column id outside [0, C) gathers 0)."""
+    C = A.n_col_blocks
+    xt = _x_table(x, A.ncols, C, torch.float32)
+    iota = torch.arange(C, dtype=torch.int32, device=x.device)
+    onehot = (A.block_cols.reshape(-1, 1) == iota).to(torch.float32)
+    with full_f32():
+        g = torch.matmul(onehot, xt)
+    return _slot_rows(A, g)
+
+
+def _spmv_bsr_onehot(A: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
+    G, S, C = A.n_groups, A.slots, A.n_col_blocks
+    _check(A.blocks, "blocks", torch.float32, (G, S * BR, BC))
+    _check(A.block_cols, "block_cols", torch.int32, (G, S))
+    if _on_cpu(A.blocks, A.block_cols, x):
+        return spmv_bsr_onehot_plain(A, x)
+    lib = _cuda.library("bsr_variants")
+    xt = _x_table(x, A.ncols, C, torch.float32)
+    y = torch.empty((G, BR), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.lsb_spmv_bsr_onehot_f32(
+            A.block_cols.data_ptr(), xt.data_ptr(), A.blocks.data_ptr(),
+            y.data_ptr(), G, S, C, _stream(x.device))
+    _cuda.check(rc, "spmv_bsr_onehot_f32")
+    LAUNCHES["bsr_onehot_f32"] += 1
+    return y.view(-1)[: A.nrows]
+
+
+# ----------------------------------------------- K6: exact-block f32
+
+def spmv_bsr_compact_plain(A: BsrCompact, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch y = A @ x over the exact-block layout (the JAX
+    package's `matvec_reference`: per-block row sums index-added into
+    y[gid])."""
+    xt = _x_table(x, A.ncols, A.n_col_blocks, torch.float32)
+    part = torch.einsum("trc,tc->tr", A.blocks, xt[A.bcols.long()])
+    y = torch.zeros((A.n_groups, BR), dtype=torch.float32, device=x.device)
+    y.index_add_(0, A.gids.long(), part)
+    return y.reshape(-1)[: A.nrows]
+
+
+def spmv_bsr_compact(A: BsrCompact, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x over the exact-block BsrCompact layout (f32)."""
+    T = A.n_blocks
+    _check(A.blocks, "blocks", torch.float32, (T, BR, BC))
+    _check(A.gids, "gids", torch.int32, (T,))
+    _check(A.bcols, "bcols", torch.int32, (T,))
+    _check(A.goff, "goff", torch.int32, (A.n_groups + 1,))
+    if _on_cpu(A.blocks, A.gids, A.bcols, A.goff, x):
+        return spmv_bsr_compact_plain(A, x)
+    lib = _cuda.library("bsr_variants")
+    xt = _x_table(x, A.ncols, A.n_col_blocks, torch.float32)
+    y = torch.empty((A.n_groups, BR), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.lsb_spmv_bsr_compact_f32(
+            A.blocks.data_ptr(), A.bcols.data_ptr(), A.goff.data_ptr(),
+            xt.data_ptr(), y.data_ptr(), A.n_groups, _stream(x.device))
+    _cuda.check(rc, "spmv_bsr_compact_f32")
+    LAUNCHES["bsr_compact_f32"] += 1
     return y.view(-1)[: A.nrows]
 
 

@@ -4,14 +4,15 @@ The iteration is the JAX package's `cg_loop` — same state, same update
 order, same stop rule (`it < maxiter and rr > tol2`) — written as a Python
 loop. The stop test reads `rr` on the host, which synchronizes with the
 device once per iteration; capturing the loop body in a CUDA graph to
-remove that sync is a later step (ROADMAP). The matvec is one of the BSR
-SpMV kernels (`ops/spmv_bsr.py`), after an optional RCM reordering that
-densifies the blocks.
+remove that sync is a later step (ROADMAP). `build_matvec` gives the SpMV
+of each layout: the BSR kernels (`ops/spmv_bsr.py`, after an optional RCM
+reordering that densifies the blocks), and the JAX package's XLA-only
+layouts as plain torch ops: `ell` (`ops/spmv.py`), `bsr_xla`
+(`BsrMatrix.matvec_xla`) and `dense`.
 """
 
 from __future__ import annotations
 
-import contextlib
 import time
 
 import numpy as np
@@ -20,11 +21,14 @@ import torch
 from lsbench_tpu_torch.matrix.bsr import (BsrClassed, BsrDf64, BsrMatrix,
                                           classed_layout_wins)
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
+from lsbench_tpu_torch.matrix.ell import EllMatrix
+from lsbench_tpu_torch.ops.spmv import spmv_ell
 from lsbench_tpu_torch.ops.spmv_bsr import (spmv_bsr, spmv_bsr_classed,
                                             spmv_bsr_df64)
 from lsbench_tpu_torch.ordering import get_ordering
 from lsbench_tpu_torch.solvers.base import SolveResult, Solver, register_solver
 from lsbench_tpu_torch.solvers.preconditioners import get_preconditioner
+from lsbench_tpu_torch.utils.precision import full_f32
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -71,18 +75,6 @@ def resolve_layout(layout: str, dtype) -> str:
     return "bsr" if as_dtype(dtype) == torch.float32 else "bsr_df64"
 
 
-@contextlib.contextmanager
-def full_f32():
-    """Run f32 matrix products and triangular solves in full f32 whatever
-    the global TF32 switches say (JAX's `Precision.HIGHEST`)."""
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prev)
-
-
 def _dense_matvec(op: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     with full_f32():
         return torch.matmul(op, v.to(op.dtype))
@@ -90,14 +82,22 @@ def _dense_matvec(op: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def build_matvec(A: CsrMatrix, layout: str, device, dtype=torch.float32):
     """Return (apply_fn, op) for the chosen layout; `apply_fn(op, v)` runs
-    the SpMV. `dtype` is the dense layout's; the BSR layouts fix their own.
+    the SpMV. `dtype` is the operator's for "dense", "ell" and "bsr_xla";
+    the BSR kernel layouts fix their own.
 
-    "dense" (small coarse AMG levels) is one library matrix-vector product
-    on the dense operator, outside any kernel of this package, as the JAX
-    package leaves it to XLA."""
+    "dense" (small coarse AMG levels), "ell" and "bsr_xla" are the JAX
+    package's XLA-only layouts: plain torch ops on the device, outside any
+    kernel of this package."""
     if layout == "dense":
         op = torch.as_tensor(A.to_dense(), dtype=as_dtype(dtype), device=device)
         return _dense_matvec, op
+    if layout == "ell":
+        return spmv_ell, EllMatrix.from_csr(A, dtype=as_dtype(dtype),
+                                            device=device)
+    if layout == "bsr_xla":
+        op = BsrMatrix.from_csr(A, dtype=as_dtype(dtype), device=device,
+                                with_sel=True)
+        return BsrMatrix.matvec_xla, op
     if layout == "bsr":
         if classed_layout_wins(A):
             layout = "bsr_classed"
@@ -110,10 +110,6 @@ def build_matvec(A: CsrMatrix, layout: str, device, dtype=torch.float32):
     if layout == "bsr_df64":
         op = BsrDf64.from_csr(A, device=device)
         return spmv_bsr_df64, op
-    if layout in ("ell", "bsr_xla"):
-        raise NotImplementedError(
-            f"layout '{layout}' is not yet ported to lsbench_tpu_torch "
-            "(ROADMAP.md Queue 1)")
     raise ValueError(f"unknown layout '{layout}'")
 
 
@@ -151,7 +147,8 @@ class CgSolver(Solver):
         Ap, self._perm, self._inv = permutation(ordering, A, self.device)
         self.setup_breakdown["ordering_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        apply_mv, self._op = build_matvec(Ap, self.layout, self.device)
+        apply_mv, self._op = build_matvec(Ap, self.layout, self.device,
+                                           dtype=self.dtype)
         self.setup_breakdown["layout_s"] = time.perf_counter() - t0
         self._dt = torch.float32 if self.layout == "bsr" else self.dtype
         self._mv = lambda v: apply_mv(self._op, v).to(self._dt)

@@ -83,11 +83,29 @@ def test_fp64_cg_matches_jax(name):
     _check_parity(JA, b, port, jax_res)
 
 
+@pytest.mark.parametrize("grid", [13, 17])
+def test_fp64_cg_dense_layout_matches_jax(grid):
+    """fp64 CG on the dense layout runs an f64 operator: the solver hands
+    `build_matvec` its dtype (with the f32 default the x stalls ~1e-7 from
+    the JAX x)."""
+    JA = j_poisson_2d(grid)
+    A = CsrMatrix(JA.nrows, JA.ncols, JA.offs, JA.cols, JA.vals)
+    b = make_rhs(A.nrows)
+    kw = dict(layout="dense", rtol=1e-12)
+    _, port = _solve(get_solver, "cg", A, b, device="cpu", **kw)
+    _, jax_res = _solve(j_get_solver, "cg", JA, b, **kw)
+    x, x_jax = port.x.numpy(), np.asarray(jax_res.x)
+    assert port.converged and jax_res.converged
+    assert _true_relres(JA, x, b) <= 1e-10
+    assert np.linalg.norm(x - x_jax) / np.linalg.norm(x_jax) <= 1e-9
+
+
 def test_unported_options_raise():
     from lsbench_tpu_torch.matrix.generate import poisson_2d
     A = poisson_2d(6)
     cls, _ = get_solver("cg")
-    for kw in (dict(layout="ell"), dict(precond="ic0"),
-               dict(ordering="amd")):
+    for kw in (dict(precond="ic0"), dict(ordering="amd")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cls(A, device="cpu", **kw)
+    with pytest.raises(ValueError, match="unknown layout"):
+        cls(A, device="cpu", layout="csr")
