@@ -17,7 +17,9 @@ Phases, each of which raises (exit code 1) on failure:
 3. Main path: write each matrix to a file and run the port's CLI on it
    (`cg_ir`, RCM, rtol 1e-10, 2 trials, 1 warmup); check the reference CSV,
    convergence, the independent host f64 residual, and that the launch
-   counters show each kernel of that path ran.
+   counters show each kernel of that path ran (poisson_2d(512): the SELL
+   f32 and f64 kernels; random_spd(6408, 23): K1 and the SELL f64 kernel)
+   and the BSR K5 and K2 did not; print the peak device memory.
 4. AMG kernel: build the `amg_classical` hierarchy of RCM-ordered
    poisson_2d(512) once and compare the window-ELL kernel (K4) with its
    plain version (within 1e-5·max|y|) and with the host f64 CSR matvec
@@ -26,7 +28,7 @@ Phases, each of which raises (exit code 1) on failure:
    device time of the kernel alone over back-to-back launches.
 5. AMG-CG-IR path: the CLI with `cg_ir --precond amg_classical --ordering
    rcm --rtol 1e-10` on poisson_2d(512); it must converge to true relres
-   ≤ 1e-10 through K5, K1, K4 and K2.
+   ≤ 1e-10 through the SELL f32 kernel, K1, K4 and the SELL f64 kernel.
 6. Fixed-cycle backend path: the CLI with `--solver hypre` (2 V-cycles) on
    poisson_2d(512): the record must say `fp64(fp32_cycles_auto)`, K4 and K1
    must run, the true relres must be finite and below 1. Then the same
@@ -51,9 +53,19 @@ Phases, each of which raises (exit code 1) on failure:
    plain version (within 1e-5·max|y|) with the median CUDA-event times,
    bounds and cuSPARSE's time. The 1.34 GB selector is freed after it.
 10. The XLA-only layouts through the CLI: `cg_ir --opt layout=ell` on
-   poisson_2d(512) (true relres ≤ 1e-10 through K2, with no K1 or K5
-   launch) and fp64 `cg --opt layout=bsr_xla` on random_spd(6408, 23)
-   (≤ 1e-10).
+   poisson_2d(512) (true relres ≤ 1e-10 through the f64 SELL product, with
+   no K1, K5 or SELL f32 launch) and fp64 `cg --opt layout=bsr_xla` on
+   random_spd(6408, 23) (≤ 1e-10).
+11. Sliced-ELL kernels (in phase 2): `spmv_sell` (f32) and `spmv_sell_f64`,
+   which replace K5 and K2 on every solver path, on the RCM SELL layouts
+   of both matrices: each within 1e-5·max|y| (f32) or 1e-13·max|y| (f64)
+   of its plain version, the f64 one also within 1e-13·max|y| of the host
+   f64 CSR matvec, bitwise repeatable, with the wrapper's median
+   CUDA-event time, the kernel alone over back-to-back launches, bytes,
+   bound and cuSPARSE's time. Since the main path no longer runs the BSR
+   K5 and K2, phase 2 also drives their public entries once (the "bsr
+   classed/df64 API" path), each result within 5e-13·max|y| (K2) or
+   2e-5·max|y| (K5) of the host f64 matvec.
 
 Each path's launch counts are read from counters set to 0 just before it.
 Beside each kernel's times the record carries its bound (`bound_ms`: the
@@ -84,6 +96,7 @@ import numpy as np
 BSR_SOURCE = "lsbench_tpu_torch/csrc/bsr_spmv.cu"
 WELL_SOURCE = "lsbench_tpu_torch/csrc/well_spmv.cu"
 VARIANTS_SOURCE = "lsbench_tpu_torch/csrc/bsr_variants.cu"
+SELL_SOURCE = "lsbench_tpu_torch/csrc/sell_spmv.cu"
 # Kernel name → (launch counter, source, TPU kernel it replaces).
 KERNELS = {
     "spmv_bsr_f32": ("bsr_f32", BSR_SOURCE,
@@ -102,6 +115,11 @@ KERNELS = {
                               "lsbench_tpu/ops/spmv_pallas.py:135"),
     "spmv_bsr_onehot_f32": ("bsr_onehot_f32", VARIANTS_SOURCE,
                             "lsbench_tpu/ops/spmv_pallas.py:27"),
+    # The redesigns of K5 and K2 for the solver paths (sliced ELL).
+    "spmv_sell_f32": ("sell_f32", SELL_SOURCE,
+                      "lsbench_tpu/ops/spmv_pallas.py:187"),
+    "spmv_sell_f64": ("sell_f64", SELL_SOURCE,
+                      "lsbench_tpu/ops/spmv_pallas.py:396"),
 }
 # The main-path runs whose launch counts the record lists, in order.
 PATHS = ("cg_ir poisson_2d(512) + random_spd(6408,23)",
@@ -111,7 +129,8 @@ PATHS = ("cg_ir poisson_2d(512) + random_spd(6408,23)",
          "ginkgo random_spd(6408,23)", "cg --nrhs 4 poisson_2d(128)",
          "spmv variants API poisson_2d(512) + random_spd(6408,23)",
          "cg_ir --opt layout=ell poisson_2d(512)",
-         "cg --opt layout=bsr_xla random_spd(6408,23)")
+         "cg --opt layout=bsr_xla random_spd(6408,23)",
+         "bsr classed/df64 API poisson_2d(512) + random_spd(6408,23)")
 # H100 SXM data sheet: HBM3 rate, and peak rates outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
@@ -209,10 +228,11 @@ def main_path_matrices():
             "random_spd(6408,23)": random_spd(6408, 23)}
 
 
-def kernel_phase(matrices) -> dict:
+def kernel_phase(matrices) -> tuple[dict, dict]:
     """Compare every kernel with its plain version at the main path's
     shapes. Returns {kernel name: {max_abs_err, ms, plain_ms, shape}} at the
-    shape the main path runs it on (max_abs_err over all shapes)."""
+    shape the main path runs it on (max_abs_err over all shapes), and the
+    launch counts of the BSR K5/K2 API path."""
     import torch
 
     from lsbench_tpu_torch.matrix.bsr import (BsrClassed, BsrDf64, BsrMatrix,
@@ -230,6 +250,7 @@ def kernel_phase(matrices) -> dict:
     p_64 = BsrDf64.from_csr(P, device=dev)
     r_uni = BsrMatrix.from_csr(R, device=dev)
     r_lo = BsrDf64.from_csr(R, device="cpu").blocks_lo.to(dev)
+    api_counts = bsr_api_path(P, R, p_cls, p_64, r_uni, r_lo)
 
     # (kernel, shape label, matrix, wrapper, plain, bytes streamed, f64?)
     cases = [
@@ -316,6 +337,199 @@ def kernel_phase(matrices) -> dict:
          "random_spd(6408,23) RCM uniform": (R, r_uni)}, rng)
     del p_cls, p_uni, p_64, r_uni, r_lo
     torch.cuda.empty_cache()
+    results.update(sell_cases({"poisson_2d(512)": P,
+                               "random_spd(6408,23)": R}, rng))
+    return results, api_counts
+
+
+def bsr_api_path(P, R, p_cls, p_64, r_uni, r_lo) -> dict:
+    """The BSR K5 and K2, which no solver path runs since the sliced-ELL
+    kernels took their place: each public entry once (classed on RCM
+    poisson_2d(512), df64 on it, df64_lo on RCM random_spd(6408, 23)),
+    counters set to 0 just before and read just after, each result held to
+    the host f64 matvec. Returns the counts."""
+    import torch
+
+    from lsbench_tpu_torch.ops import spmv_bsr as ops
+    rng = np.random.default_rng(3)
+    xp, xr = rng.standard_normal(P.ncols), rng.standard_normal(R.ncols)
+    dev = p_64.blocks_hi.device
+    x32 = torch.as_tensor(xp, dtype=torch.float32, device=dev)
+    xp64 = torch.as_tensor(xp, device=dev)
+    xr64 = torch.as_tensor(xr, device=dev)
+    reset_counts()
+    out = {"spmv_bsr_classed [poisson_2d(512)]": (
+               P, xp, ops.spmv_bsr_classed(p_cls, x32), 2e-5),
+           "spmv_bsr_df64 [poisson_2d(512)]": (
+               P, xp, ops.spmv_bsr_df64(p_64, xp64), 5e-13),
+           "spmv_bsr_df64_lo [random_spd(6408,23)]": (
+               R, xr, ops.spmv_bsr_df64_lo(r_uni, r_lo, xr64), 5e-13)}
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts["bsr_classed_f32"] == len(p_cls.blocks)
+          and counts["bsr_f64acc"] == 2, f"bsr API path launches {counts}")
+    for label, (A, x_np, y, rel) in out.items():
+        y_host = A.matvec(x_np)
+        err = float(np.abs(y.double().cpu().numpy() - y_host).max())
+        tol = rel * float(np.abs(y_host).max())
+        check(y.shape == (A.nrows,) and err <= tol,
+              f"{label}: max|kernel - host f64| = {err:.3e} > {tol:.3e}")
+        print(f"bsr API {label}: host_err={err:.3e} (tol {tol:.3e})")
+    print(f"bsr classed/df64 API path: launches={counts}")
+    return counts
+
+
+def host_call_ms(fn, calls: int = 200) -> float:
+    """Host time of one call: the host clock around `calls` calls that are
+    not waited for (the card runs behind), divided by the count."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e3
+
+
+def kernel_alone_ms(fn, args, launches: int = 200) -> float:
+    """Time of one launch: CUDA events around `launches` back-to-back calls
+    of a kernel's entry point alone (no wrapper checks, no allocation), so
+    the wrapper's host time does not show. Where one launch takes less
+    host time than its kernel takes on the card, this is the kernel's
+    device time; otherwise it is the launch rate."""
+    import torch
+
+    from lsbench_tpu_torch.ops import _cuda
+    _cuda.check(fn(*args), "kernel alone")
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn(*args)
+    end.record()
+    end.synchronize()
+    _cuda.check(fn(*args), "kernel alone")
+    return start.elapsed_time(end) / launches
+
+
+def profiled_kernel_ms(fn, args, kernel: str, flush=None,
+                       launches: int = 50) -> float | None:
+    """Median device duration of the kernel named `kernel` over `launches`
+    calls under torch.profiler; with `flush`, a write of a buffer larger
+    than the 50 MB L2 before each call, so the kernel reads its operands
+    from HBM. None if the trace holds no such kernel."""
+    import statistics
+
+    import torch
+
+    from lsbench_tpu_torch.harness.profile_solve import _device_events
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(launches):
+            if flush is not None:
+                flush.zero_()
+            fn(*args)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        durs = [e["dur"] for e in _device_events(path)
+                if e["cat"] == "kernel" and kernel in e["name"]]
+    return statistics.median(durs) / 1e3 if durs else None
+
+
+def sell_cases(matrices, rng) -> dict:
+    """The sliced-ELL kernels (the redesigned K5 and K2) against their plain
+    versions, the host f64 matvec and cuSPARSE on the RCM SELL layout of
+    each matrix; returns the record entries at poisson_2d(512)."""
+    import torch
+
+    from lsbench_tpu_torch.matrix.sell import SellMatrix
+    from lsbench_tpu_torch.ops import _cuda
+    from lsbench_tpu_torch.ops import spmv_sell as ops
+
+    dev = torch.device("cuda")
+    lib = _cuda.library("sell_spmv")
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB
+    results = {}
+    for label, A in matrices.items():
+        t0 = time.perf_counter()
+        S = SellMatrix.from_csr(A, dtypes=(torch.float32, torch.float64),
+                                device=dev)
+        torch.cuda.synchronize()
+        widths = np.bincount(S.widths)
+        print(f"sell layout {label} RCM: n_slices={S.n_slices} "
+              f"n_stored={S.n_stored} (nnz {A.nnz}, "
+              f"{S.n_stored / A.nnz:.4f}x) {S.bytes_streamed} B (cols, "
+              f"slice_off, f32 and f64 values), widths "
+              f"{ {w: int(c) for w, c in enumerate(widths) if c} } built in "
+              f"{time.perf_counter() - t0:.2f} s")
+        x_np = rng.standard_normal(A.ncols)
+        for name, f64 in (("spmv_sell_f32", False), ("spmv_sell_f64", True)):
+            dtype = torch.float64 if f64 else torch.float32
+            kern = ops.spmv_sell_f64 if f64 else ops.spmv_sell
+            plain = ops.spmv_sell_f64_plain if f64 else ops.spmv_sell_plain
+            vals = S.vals64 if f64 else S.vals
+            x = torch.as_tensor(x_np, dtype=dtype, device=dev)
+            y_k, y_again, y_p = kern(S, x), kern(S, x), plain(S, x)
+            torch.cuda.synchronize()
+            tag = f"{name} [{label} RCM sell]"
+            check(y_k.shape == (A.nrows,) and bool(torch.isfinite(y_k).all()),
+                  f"{tag}: bad output")
+            check(torch.equal(y_k, y_again), f"{tag}: not bitwise repeatable")
+            scale = float(y_p.abs().max())
+            err = float((y_k - y_p).abs().max())
+            tol = (1e-13 if f64 else 1e-5) * scale
+            check(err <= tol, f"{tag}: max|kernel - plain| = {err:.3e} > "
+                              f"{tol:.3e}")
+            y_host = A.matvec(x_np)
+            host_err = float(np.abs(y_k.double().cpu().numpy() - y_host).max())
+            host_tol = (1e-13 if f64 else 2e-5) * float(np.abs(y_host).max())
+            check(host_err <= host_tol, f"{tag}: max|kernel - host f64| = "
+                                        f"{host_err:.3e} > {host_tol:.3e}")
+            ms = median_ms(lambda: kern(S, x))
+            plain_ms = median_ms(lambda: plain(S, x))
+            host_ms = host_call_ms(lambda: kern(S, x))
+            y = torch.empty(A.nrows, dtype=dtype, device=dev)
+            args = (vals.data_ptr(), S.cols.data_ptr(),
+                    S.slice_off.data_ptr(), x.data_ptr(), y.data_ptr(),
+                    A.nrows, torch.cuda.current_stream().cuda_stream)
+            entry_fn = getattr(lib, "lsb_" + name)
+            alone = kernel_alone_ms(entry_fn, args)
+            warm = profiled_kernel_ms(entry_fn, args, name + "_kernel")
+            cold = profiled_kernel_ms(entry_fn, args, name + "_kernel", flush)
+            vb = 8 if f64 else 4
+            nbytes = ((vb + 4) * S.n_stored + 8 * S.slice_off.numel()
+                      + vb * (A.ncols + A.nrows))
+            b_ms, b_by = bound(nbytes, 2 * S.n_stored, "f64" if f64 else "f32")
+            lib_ms = library_ms(A, dtype, x)
+            fmt = lambda v: "n/a" if v is None else f"{v:.4f}"  # noqa: E731
+            print(f"kernel {tag}: max_abs_err={err:.3e} (tol {tol:.3e}) "
+                  f"host_err={host_err:.3e} wrapper {ms:.4f} ms (host "
+                  f"{host_ms:.4f} ms per call), kernel "
+                  f"alone {alone:.4f} ms, device (profiler) L2-warm "
+                  f"{fmt(warm)} ms, L2-cold {fmt(cold)} ms, plain "
+                  f"{plain_ms:.4f} ms; {nbytes} B: {nbytes / ms / 1e6:.1f} "
+                  f"GB/s by the wrapper, {nbytes / alone / 1e6:.1f} GB/s "
+                  f"alone")
+            print(f"  bound {b_ms:.4f} ms ({b_by}), CSR bound "
+                  f"{csr_bound_ms(A, vb):.4f} ms, cuSPARSE {lib_ms:.4f} ms")
+            entry = results.setdefault(name, {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            if label == "poisson_2d(512)":
+                entry.update(ms=ms, plain_ms=plain_ms, launch_ms=alone,
+                             wrapper_host_ms=host_ms,
+                             device_ms_l2_warm=warm, device_ms_l2_cold=cold,
+                             shape=f"{label} RCM sell", bound_ms=b_ms,
+                             bound_by=b_by, library_ms=lib_ms)
+        del S
+    del flush
+    torch.cuda.empty_cache()
     return results
 
 
@@ -379,28 +593,33 @@ def spmm_cases(layouts, rng) -> dict:
 def main_path_phase(matrices) -> dict:
     """Run cg_ir through the port's CLI on each matrix; return the launch
     counts of the whole phase."""
+    import torch
+
     from lsbench_tpu_torch.harness.bench import BenchRecord
     from lsbench_tpu_torch.harness.cli import main as cli_main
     from lsbench_tpu_torch.matrix.io import write_matrix
-    from lsbench_tpu_torch.ops.spmv_bsr import LAUNCHES, reset_launches
 
-    expect = {"poisson_2d(512)": ("bsr_classed_f32", "bsr_f64acc"),
-              "random_spd(6408,23)": ("bsr_f32", "bsr_f64acc")}
-    reset_launches()
+    expect = {"poisson_2d(512)": ("sell_f32", "sell_f64"),
+              "random_spd(6408,23)": ("bsr_f32", "sell_f64")}
+    total = {}
     with tempfile.TemporaryDirectory() as tmp:
         for label, A in matrices.items():
             fname = os.path.join(tmp, label.split("(")[0] + ".txt")
             t0 = time.perf_counter()
             write_matrix(A, fname)
             write_s = time.perf_counter() - t0
-            before = dict(LAUNCHES)
             buf = io.StringIO()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
                 rc = cli_main(["--matrix", fname, "--solver", "cg_ir",
                                "--ordering", "rcm", "--rtol", "1e-10",
                                "--trials", "2", "--warmups", "1", "--json"])
             wall_s = time.perf_counter() - t0
+            ran = read_counts()
+            peak = torch.cuda.max_memory_allocated()
             out = buf.getvalue().splitlines()
             check(rc == 0, f"{label}: CLI exited {rc}")
             check(len(out) == 3 and out[0] == BenchRecord.CSV_HEADER,
@@ -414,31 +633,38 @@ def main_path_phase(matrices) -> dict:
             check(rec["converged"] is True, f"{label}: not converged")
             check(rec["true_relres"] <= 1e-10,
                   f"{label}: true_relres {rec['true_relres']:.3e} > 1e-10")
-            ran = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
             for k in expect[label]:
                 check(ran[k] > 0, f"{label}: kernel {k} never launched")
+            for k in ("bsr_classed_f32", "bsr_f64acc"):
+                check(ran[k] == 0, f"{label}: BSR kernel {k} launched {ran}")
+            for k, v in ran.items():
+                total[k] = total.get(k, 0) + v
             jax_it, jax_passes = JAX_CPU_ITERS[label]
             print(f"main path {label}: n={rec['n']} nnz={rec['nnz']} "
                   f"iters={rec['iters']} passes={rec['refine_passes']} "
                   f"(JAX on CPU, ELL layout: {jax_it}/{jax_passes}) "
                   f"true_relres={rec['true_relres']:.3e} "
-                  f"setup_s={rec['setup_s']:.3f} solve_s={rec['solve_s']:.4f} "
+                  f"setup_s={rec['setup_s']:.3f} (layout_s="
+                  f"{rec['setup_breakdown']['layout_s']:.3f}) "
+                  f"solve_s={rec['solve_s']:.4f} "
                   f"first_call_s={rec['first_call_s']:.3f} "
+                  f"peak_device_mem_bytes={peak} "
                   f"write_s={write_s:.2f} cli_wall_s={wall_s:.2f} "
                   f"launches={ran}")
             print(f"  csv: {out[1]}")
-    return dict(LAUNCHES)
+    return total
 
 
 def reset_counts() -> None:
-    from lsbench_tpu_torch.ops import interp_well, spmv_bsr
+    from lsbench_tpu_torch.ops import interp_well, spmv_bsr, spmv_sell
     spmv_bsr.reset_launches()
     interp_well.reset_launches()
+    spmv_sell.reset_launches()
 
 
 def read_counts() -> dict:
-    from lsbench_tpu_torch.ops import interp_well, spmv_bsr
-    return {**spmv_bsr.LAUNCHES, **interp_well.LAUNCHES}
+    from lsbench_tpu_torch.ops import interp_well, spmv_bsr, spmv_sell
+    return {**spmv_bsr.LAUNCHES, **interp_well.LAUNCHES, **spmv_sell.LAUNCHES}
 
 
 def _op_summary(op) -> str:
@@ -451,10 +677,9 @@ def _op_summary(op) -> str:
     return f"{kind}{extra} {op.bytes_streamed} B"
 
 
-def well_launch_ms(op, x, launches: int = 200) -> float:
-    """Device time of one K4 launch: CUDA events around `launches`
-    back-to-back launches of the kernel alone (no x-table fill, no wrapper
-    checks), so the host's per-call cost does not show as card idle."""
+def well_launch_ms(op, x) -> float:
+    """Time of one K4 launch alone (no x-table fill, no wrapper checks):
+    `kernel_alone_ms` of its entry point."""
     import torch
 
     from lsbench_tpu_torch.ops import _cuda, interp_well
@@ -462,19 +687,9 @@ def well_launch_ms(op, x, launches: int = 200) -> float:
     xt = interp_well._x_table(op, x)
     y = torch.empty(op.n_pad, dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream().cuda_stream
-    args = (op.vals.data_ptr(), op.lcols.data_ptr(), op.w0.data_ptr(),
-            xt.data_ptr(), y.data_ptr(), op.n_pad, op.k_real, stream)
-    _cuda.check(lib.lsb_spmv_well_f32(*args), "spmv_well_f32")
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(launches):
-        lib.lsb_spmv_well_f32(*args)
-    end.record()
-    end.synchronize()
-    _cuda.check(lib.lsb_spmv_well_f32(*args), "spmv_well_f32")
-    return start.elapsed_time(end) / launches
+    return kernel_alone_ms(lib.lsb_spmv_well_f32, (
+        op.vals.data_ptr(), op.lcols.data_ptr(), op.w0.data_ptr(),
+        xt.data_ptr(), y.data_ptr(), op.n_pad, op.k_real, stream))
 
 
 def amg_kernel_phase(A) -> dict:
@@ -606,7 +821,7 @@ def amg_paths_phase(tmp: str, A512, A128) -> list[dict]:
     check(rec["converged"] is True, "amg-cg-ir: not converged")
     check(rec["true_relres"] <= 1e-10,
           f"amg-cg-ir: true_relres {rec['true_relres']:.3e} > 1e-10")
-    for k in ("bsr_classed_f32", "bsr_f32", "well_f32", "bsr_f64acc"):
+    for k in ("sell_f32", "bsr_f32", "well_f32", "sell_f64"):
         check(ran[k] > 0, f"amg-cg-ir: kernel {k} never launched")
     bd = rec["setup_breakdown"]
     print(f"amg-cg-ir path poisson_2d(512): iters={rec['iters']} "
@@ -679,7 +894,7 @@ def multi_rhs_paths_phase(tmp: str, matrices, A128) -> list[dict]:
         check(rec["converged"] is True and rec["true_relres"] <= 1e-10,
               f"block-cg {label}: converged {rec['converged']} true_relres "
               f"{rec['true_relres']:.3e}")
-        for k in ("bsr_mm_f32", "bsr_f64acc"):
+        for k in ("bsr_mm_f32", "sell_f64"):
             check(ran[k] > 0, f"block-cg {label}: kernel {k} never launched")
         print(f"block-cg path {label} (--nrhs 8): block iters={rec['iters']}"
               f" passes={rec['refine_passes']} method={rec['method']} "
@@ -701,7 +916,8 @@ def multi_rhs_paths_phase(tmp: str, matrices, A128) -> list[dict]:
           f"ginkgo --nrhs 8: solver {rec['solver']}")
     check(rec["converged"] is True and rec["true_relres"] <= 1e-4,
           f"ginkgo --nrhs 8: true_relres {rec['true_relres']:.3e}")
-    check(ran["bsr_mm_f32"] > 0, "ginkgo --nrhs 8: K3 never launched")
+    check(ran["bsr_mm_f32"] > 0 and ran["sell_f64"] > 0,
+          f"ginkgo --nrhs 8: kernels {ran}")
     max_refine = inspect.signature(BatchedBicgstabSolver).parameters[
         "max_refine"].default
     print(f"ginkgo path {label} (--nrhs 8, batched BiCGSTAB): "
@@ -722,7 +938,7 @@ def multi_rhs_paths_phase(tmp: str, matrices, A128) -> list[dict]:
           f"ginkgo: precision {rec['precision']}")
     check(rec["converged"] is True and rec["true_relres"] <= 1e-4,
           f"ginkgo: true_relres {rec['true_relres']:.3e}")
-    check(ran["bsr_f32"] + ran["bsr_classed_f32"] > 0 and ran["bsr_f64acc"] > 0,
+    check(ran["bsr_f32"] + ran["sell_f32"] > 0 and ran["sell_f64"] > 0,
           f"ginkgo: kernels {ran}")
     print(f"ginkgo path {label} (one RHS, bicgstab_ir): iters={rec['iters']}"
           f" passes={rec['refine_passes']} precision={rec['precision']} "
@@ -889,9 +1105,11 @@ def layout_paths_phase(tmp: str, matrices) -> list[dict]:
               f"{argv[-1]} {label}: converged {rec['converged']} "
               f"true_relres {rec['true_relres']:.3e}")
         if argv[-1] == "layout=ell":
-            check(ran["bsr_f64acc"] > 0, f"{label}: K2 never launched")
-            check(ran["bsr_f32"] == ran["bsr_classed_f32"] == 0,
-                  f"{label}: K1/K5 launched with the ELL layout: {ran}")
+            check(ran["sell_f64"] > 0, f"{label}: sell_f64 never launched")
+            check(ran["bsr_f32"] == ran["bsr_classed_f32"]
+                  == ran["sell_f32"] == 0,
+                  f"{label}: an f32 kernel launched with the ELL layout: "
+                  f"{ran}")
         print(f"{argv[1]} --opt {argv[-1]} path {label}: "
               f"iters={rec['iters']} passes={rec.get('refine_passes')} "
               f"precision={rec['precision']} "
@@ -916,7 +1134,7 @@ def main() -> int:
 
     matrices = main_path_matrices()
     t0 = time.perf_counter()
-    measured = kernel_phase(matrices)
+    measured, bsr_api_counts = kernel_phase(matrices)
     print(f"phase kernels: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     path_counts = [main_path_phase(matrices)]
@@ -944,6 +1162,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         path_counts += layout_paths_phase(tmp, matrices)
     print(f"phase layout paths: {time.perf_counter() - t0:.2f} s")
+    path_counts.append(bsr_api_counts)
     check(len(path_counts) == len(PATHS), "one launch count per path")
 
     kernels = []
@@ -959,7 +1178,10 @@ def main() -> int:
                         "bound_by": m["bound_by"],
                         "library_ms": m["library_ms"], "shape": m["shape"],
                         **({"kernel_alone_ms": m["launch_ms"]}
-                           if "launch_ms" in m else {})})
+                           if "launch_ms" in m else {}),
+                        **{k: m[k] for k in ("wrapper_host_ms",
+                                             "device_ms_l2_warm",
+                                             "device_ms_l2_cold") if k in m}})
     print("paths: " + json.dumps(PATHS))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -19,10 +19,11 @@ right-hand sides — the solves chip_smoke.py drives through the CLI):
 every launch), not the device, so the busy time of the profiled solve is
 set against the unprofiled wall time of the same process. With the Jacobi
 preconditioner, `spmv_ms` is the inner f32 SpMV kernel's device time per CG
-iteration (one SpMV each), and `spmv_gbps` the operator's stored blocks
-streamed in that time; with AMG the same kernels also run inside the
-V-cycle, so those two are left out. `groups` sums the device time by kind
-of kernel (K1-K5, QR, eigh, GEMM, PyTorch's elementwise and reduction
+iteration (one SpMV each), and `spmv_gbps` the inner operator's layout
+bytes (`bytes_streamed`) over that time; with AMG the same kernels also
+run inside the V-cycle, so those two are left out. `groups` sums the device time by kind
+of kernel (K1-K5, the sliced-ELL kernels that replace K5 and K2 on the
+solver paths, QR, eigh, GEMM, PyTorch's elementwise and reduction
 kernels, copies) by substrings of the kernel names (`GROUPS`).
 
 Prints one JSON object per matrix; `--out` also writes them, with the full
@@ -46,13 +47,17 @@ from lsbench_tpu_torch.solvers.block_cg import BlockCgSolver
 from lsbench_tpu_torch.solvers.refine import CgIrSolver
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
-# Substrings of the inner f32 SpMV kernels' names in the trace.
-INNER_KERNELS = ("spmv_bsr_f32_kernel", "spmv_bsr_classed_f32_kernel")
+# Substrings of the inner f32 SpMV kernels' names in the trace: K1, the
+# sliced-ELL f32 kernel that replaces K5 on the solver paths, and K5.
+INNER_KERNELS = ("spmv_bsr_f32_kernel", "spmv_sell_f32_kernel",
+                 "spmv_bsr_classed_f32_kernel")
 # Kind of kernel → substrings of its names (lower case), first match wins.
 GROUPS = (
     ("K3 spmm_bsr", ("spmm_bsr_f32_kernel",)),
+    ("SELL f32", ("spmv_sell_f32_kernel",)),
+    ("SELL f64", ("spmv_sell_f64_kernel",)),
     ("K2 f64acc", ("spmv_bsr_f64acc_kernel",)),
-    ("K1/K5 spmv", INNER_KERNELS),
+    ("K1/K5 spmv", ("spmv_bsr_f32_kernel", "spmv_bsr_classed_f32_kernel")),
     ("K4 well", ("spmv_well",)),
     ("eigh", ("syev", "stedc", "sytrd", "steqr", "eigh")),
     ("QR", ("geqr", "orgqr", "ormqr", "larf", "householder")),

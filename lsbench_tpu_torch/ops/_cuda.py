@@ -37,6 +37,8 @@ SOURCES = {
     "bsr_variants": (("lsb_spmv_bsr_compact_f32", 5, 1),
                      ("lsb_spmv_bsr_selector_f32", 4, 3),
                      ("lsb_spmv_bsr_onehot_f32", 4, 3)),
+    "sell_spmv": (("lsb_spmv_sell_f32", 5, 1),
+                  ("lsb_spmv_sell_f64", 5, 1)),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

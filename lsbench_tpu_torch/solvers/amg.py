@@ -7,17 +7,18 @@ classical coarsening (`solvers/classical_amg.py`), prolongator smoothing,
 Galerkin RAP (`ops/spgemm.py`), the coarse alignment. `build_hierarchy`
 then picks each operator's device layout with the JAX package's cost model
 and constants, unchanged: window-ELL (kernel K4, `ops/interp_well.py`) for
-banded narrow operators where it wins, dense for tiny coarse levels, the
-BSR kernels (K1/K5) otherwise. The cycle is eager PyTorch over those
+banded narrow operators where it wins, dense for tiny coarse levels, and
+otherwise K1 on uniform BSR or, where the JAX package takes class-padded
+BSR, the sliced-ELL f32 kernel (`ops/spmv_sell.py`). The cycle is eager PyTorch over those
 operators: V or K cycles; Chebyshev, Jacobi, ℓ1-Jacobi or hybrid ℓ1-GS
 smoothing; a dense Cholesky solve on the coarsest level.
 
 Precision takes the JAX package's TPU branch on every device: fp64
 fixed-cycle runs the cycles in f32 (`fp32_cycles_auto`), fp64 converge
-mode runs f32 V-cycles with the f64 residual on the f64-accurate BSR kernel
-K2 (`fp32_ir_auto`). On the JAX package's non-TPU branch the hierarchy
-would be f64, where window-ELL refuses to build and every level would run
-on K2.
+mode runs f32 V-cycles with the f64 residual on the sliced-ELL f64 product
+(`fp32_ir_auto`), which takes K2's place. On the JAX package's non-TPU
+branch the hierarchy would be f64, where window-ELL refuses to build and
+every level would run on the f64 product.
 
 The hierarchy cache (`--cache`) and its device re-setup
 (`HierarchyRefresher`, `ops/spgemm_device.py`) are not ported.
@@ -33,15 +34,15 @@ from typing import Callable
 import numpy as np
 import torch
 
-from lsbench_tpu_torch.matrix.bsr import BC, BR, GPS, BsrDf64
+from lsbench_tpu_torch.matrix.bsr import BC, BR, GPS
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
 from lsbench_tpu_torch.ops.interp_well import TR, WindowEll, spmv_well
 from lsbench_tpu_torch.ops.spgemm import rap, spgemm
-from lsbench_tpu_torch.ops.spmv_bsr import spmv_bsr_df64
 from lsbench_tpu_torch.ordering.rcm import rcm_ordering
 from lsbench_tpu_torch.solvers.base import SolveResult, Solver, register_solver
 from lsbench_tpu_torch.solvers.cg import (as_dtype, build_matvec, full_f32,
                                           permutation, resolve_layout)
+from lsbench_tpu_torch.solvers.refine import f64_residual_matvec
 
 
 # --------------------------------------------------------------- host setup
@@ -610,7 +611,7 @@ class AmgSolver(Solver):
         if self.dtype == torch.float64 and self.cycles is None:
             # Converge mode: AMG iteration is iterative refinement with the
             # V-cycle as the inner solve: f32 cycles + an f64 residual on
-            # the f64-accurate BSR kernel, once per cycle.
+            # the sliced-ELL f64 product, once per cycle.
             print("amg: converge-mode fp64 executes as f32 V-cycles + f64 "
                   "residual refinement (mode fp32_ir_auto).", file=sys.stderr)
             self.dtype = torch.float32
@@ -651,7 +652,7 @@ class AmgSolver(Solver):
                                     dtype=self.dtype)
         self._fine_mv = lambda x: ap0(op0, x)
         if self._ir:
-            self._op64 = BsrDf64.from_csr(Ah, device=self.device)
+            self._resid_mv = f64_residual_matvec(Ah, op0, self.device)
 
     def _cycle(self, b, x):
         return self._vcycle(self._levels, self._coarse_L, b, x)
@@ -665,7 +666,8 @@ class AmgSolver(Solver):
 
     def _solve_ir(self, b):
         """x += Vcycle32(r / ‖r‖)·‖r‖ with the f64 residual carried, one
-        K2 SpMV per cycle; the stop test reads rr on the host."""
+        f64 SpMV (`spmv_sell_f64`) per cycle; the stop test reads rr on
+        the host."""
         bb = torch.dot(b, b)
         tol2 = (self.rtol ** 2) * bb
         x, r, rr, it = torch.zeros_like(b), b, bb, 0
@@ -676,7 +678,7 @@ class AmgSolver(Solver):
             z32 = self._cycle(r32, torch.zeros_like(r32))
             z32 = torch.where(torch.isfinite(z32), z32, 0.0)
             x = x + (z32 * safe.to(torch.float32)).to(torch.float64)
-            r = b - spmv_bsr_df64(self._op64, x)
+            r = b - self._resid_mv(x)
             rr = torch.dot(r, r)
             it += 1
         return x, rr, bb, it

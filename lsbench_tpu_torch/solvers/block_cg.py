@@ -14,8 +14,8 @@ iterations, as in the JAX package:
   converged columns frozen by masking; the fallback for a preconditioner
   that does not split (anything but none/jacobi, e.g. amg).
 
-Precision: f32 inner solve + one f64-accurate residual per refinement pass
-(K2, one launch per column, sharing the f32 operator's hi blocks), reported
+Precision: f32 inner solve + one f64 residual per refinement pass (the
+sliced-ELL f64 product that replaces K2, one launch per column), reported
 as `fp32_ir`. The k×k algebra and the (n,k)·(k,k) products run in full f32
 (`full_f32`, JAX's Precision.HIGHEST) through torch.linalg and torch.matmul,
 as the JAX package leaves them to XLA. Each stop test reads the device once
@@ -159,7 +159,7 @@ def column_precond(precond: str, state, papply):
 
 class MultiRhsIrSolver(Solver):
     """f32 inner solve of A D = R over k columns on K3 + one f64 residual
-    per refinement pass (K2 per column). Subclasses provide
+    per refinement pass (`spmv_sell_f64` per column). Subclasses provide
     `_inner_loop(R32) -> (D32, iters)`. solve(B) takes (n, k) or a 1-D b
     (k = 1, returned 1-D); relres/converged report the worst column."""
 
@@ -187,8 +187,9 @@ class MultiRhsIrSolver(Solver):
         raise NotImplementedError
 
     def _mm64(self, X):
-        """f64 residual SpMM: one K2 launch per column, once per pass."""
-        return torch.stack([self._resid_mv(X[:, j])
+        """f64 residual SpMM: one `spmv_sell_f64` launch per column, once
+        per pass."""
+        return torch.stack([self._resid_mv(X[:, j].contiguous())
                             for j in range(X.shape[1])], dim=1)
 
     def solve(self, B) -> SolveResult:

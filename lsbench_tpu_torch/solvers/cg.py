@@ -5,10 +5,11 @@ order, same stop rule (`it < maxiter and rr > tol2`) — written as a Python
 loop. The stop test reads `rr` on the host, which synchronizes with the
 device once per iteration; capturing the loop body in a CUDA graph to
 remove that sync is a later step (ROADMAP). `build_matvec` gives the SpMV
-of each layout: the BSR kernels (`ops/spmv_bsr.py`, after an optional RCM
-reordering that densifies the blocks), and the JAX package's XLA-only
-layouts as plain torch ops: `ell` (`ops/spmv.py`), `bsr_xla`
-(`BsrMatrix.matvec_xla`) and `dense`.
+of each layout, after an optional RCM reordering: the uniform BSR kernel
+K1 (`ops/spmv_bsr.py`), the sliced-ELL kernels that replace K5 and K2 on
+the class-padded and f64 layouts (`ops/spmv_sell.py`), and the JAX
+package's XLA-only layouts as plain torch ops: `ell` (`ops/spmv.py`),
+`bsr_xla` (`BsrMatrix.matvec_xla`) and `dense`.
 """
 
 from __future__ import annotations
@@ -18,13 +19,13 @@ import time
 import numpy as np
 import torch
 
-from lsbench_tpu_torch.matrix.bsr import (BsrClassed, BsrDf64, BsrMatrix,
-                                          classed_layout_wins)
+from lsbench_tpu_torch.matrix.bsr import BsrMatrix, classed_layout_wins
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
 from lsbench_tpu_torch.matrix.ell import EllMatrix
+from lsbench_tpu_torch.matrix.sell import SellMatrix
 from lsbench_tpu_torch.ops.spmv import spmv_ell
-from lsbench_tpu_torch.ops.spmv_bsr import (spmv_bsr, spmv_bsr_classed,
-                                            spmv_bsr_df64)
+from lsbench_tpu_torch.ops.spmv_bsr import spmv_bsr
+from lsbench_tpu_torch.ops.spmv_sell import spmv_sell, spmv_sell_f64
 from lsbench_tpu_torch.ordering import get_ordering
 from lsbench_tpu_torch.solvers.base import SolveResult, Solver, register_solver
 from lsbench_tpu_torch.solvers.preconditioners import get_preconditioner
@@ -68,8 +69,8 @@ def cg_loop(matvec, precond_apply, b, rtol, maxiter, dtype):
 
 
 def resolve_layout(layout: str, dtype) -> str:
-    """"auto" takes the JAX package's TPU branch on every device: the f32
-    BSR kernel for f32, the f64-accurate BSR kernel for f64."""
+    """"auto" takes the JAX package's TPU branch on every device: "bsr" for
+    f32, "bsr_df64" (f64-accurate) for f64."""
     if layout != "auto":
         return layout
     return "bsr" if as_dtype(dtype) == torch.float32 else "bsr_df64"
@@ -83,8 +84,15 @@ def _dense_matvec(op: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def build_matvec(A: CsrMatrix, layout: str, device, dtype=torch.float32):
     """Return (apply_fn, op) for the chosen layout; `apply_fn(op, v)` runs
     the SpMV. `dtype` is the operator's for "dense", "ell" and "bsr_xla";
-    the BSR kernel layouts fix their own.
+    the kernel layouts fix their own.
 
+    The names are the JAX package's, so that the CLI, the record and its
+    layout gates stay comparable; on the card the class-padded and f64
+    layouts are sliced ELL:
+      "bsr"          uniform f32 BsrMatrix and K1, or, where
+                     `classed_layout_wins(A)`, the same as "bsr_classed";
+      "bsr_classed"  f32 SellMatrix and `spmv_sell` (the redesigned K5);
+      "bsr_df64"     f64 SellMatrix and `spmv_sell_f64` (the redesigned K2).
     "dense" (small coarse AMG levels), "ell" and "bsr_xla" are the JAX
     package's XLA-only layouts: plain torch ops on the device, outside any
     kernel of this package."""
@@ -105,11 +113,11 @@ def build_matvec(A: CsrMatrix, layout: str, device, dtype=torch.float32):
             op = BsrMatrix.from_csr(A, dtype=torch.float32, device=device)
             return spmv_bsr, op
     if layout == "bsr_classed":
-        op = BsrClassed.from_csr(A, dtype=torch.float32, device=device)
-        return spmv_bsr_classed, op
+        return spmv_sell, SellMatrix.from_csr(A, dtypes=(torch.float32,),
+                                              device=device)
     if layout == "bsr_df64":
-        op = BsrDf64.from_csr(A, device=device)
-        return spmv_bsr_df64, op
+        return spmv_sell_f64, SellMatrix.from_csr(A, dtypes=(torch.float64,),
+                                                  device=device)
     raise ValueError(f"unknown layout '{layout}'")
 
 
@@ -151,7 +159,10 @@ class CgSolver(Solver):
                                            dtype=self.dtype)
         self.setup_breakdown["layout_s"] = time.perf_counter() - t0
         self._dt = torch.float32 if self.layout == "bsr" else self.dtype
-        self._mv = lambda v: apply_mv(self._op, v).to(self._dt)
+        # The f32 kernels take f32 x (an f64 CG on an f32 operator casts).
+        mv_dt = (torch.float32 if self.layout in ("bsr", "bsr_classed")
+                 else self._dt)
+        self._mv = lambda v: apply_mv(self._op, v.to(mv_dt)).to(self._dt)
         self._pstate, papply = get_preconditioner(precond)(
             Ap, self._dt, self.device, **(precond_params or {}))
         self._pc = lambda r: papply(self._pstate, r)

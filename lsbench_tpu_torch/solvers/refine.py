@@ -1,13 +1,14 @@
 """Mixed-precision iterative refinement (counterpart of
 `lsbench_tpu/solvers/refine.py`): f64 accuracy at f32 iteration cost.
 
-Inner Krylov solve in f32 on the f32 BSR SpMV kernel; once per refinement
-pass, the f64 residual r = b − A·x on the f64-accurate BSR kernel. Each pass
-gains ~6 digits, so 2–4 passes reach the reference's direct-solve tolerance
-1e-10. The port takes the JAX package's TPU branch on every device, so both
-packages run the same layouts: with a uniform inner BsrMatrix the residual
-shares its hi blocks (`spmv_bsr_df64_lo`), otherwise (class-padded inner
-layout) it streams a full BsrDf64. Inner methods: CG (`cg_ir`) and BiCGSTAB
+Inner Krylov solve in f32 on the f32 SpMV of the chosen layout (K1 on a
+uniform BsrMatrix, or the sliced-ELL `spmv_sell` where the JAX package
+would take the class-padded layout); once per refinement pass, the f64
+residual r = b − A·x on the sliced-ELL f64 product `spmv_sell_f64`, an
+exact native-FP64 matvec where the TPU ran the double-float BSR kernel K2.
+Each pass gains ~6 digits, so 2–4 passes reach the reference's direct-solve
+tolerance 1e-10. The layout names and gates are the JAX package's TPU
+branch on every device. Inner methods: CG (`cg_ir`) and BiCGSTAB
 (`bicgstab_ir`, what fp64 `bicgstab` delegates to); `gmres_ir` is a ROADMAP
 Queue 1 item.
 """
@@ -18,9 +19,9 @@ import time
 
 import torch
 
-from lsbench_tpu_torch.matrix.bsr import BsrDf64, BsrMatrix
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
-from lsbench_tpu_torch.ops.spmv_bsr import spmv_bsr_df64, spmv_bsr_df64_lo
+from lsbench_tpu_torch.matrix.sell import SellMatrix
+from lsbench_tpu_torch.ops.spmv_sell import spmv_sell_f64
 from lsbench_tpu_torch.solvers.base import SolveResult, Solver, register_solver
 from lsbench_tpu_torch.solvers.bicgstab import bicgstab_loop
 from lsbench_tpu_torch.solvers.cg import (build_matvec, cg_loop, permutation,
@@ -29,18 +30,15 @@ from lsbench_tpu_torch.solvers.preconditioners import get_preconditioner
 
 
 def f64_residual_matvec(Ap: CsrMatrix, op, device):
-    """The f64-accurate SpMV (K2) of the refinement residual. With a uniform
-    inner BsrMatrix of the same layout, the hi array equals its blocks bit
-    for bit, so only the lo array goes to the device; otherwise a full
-    BsrDf64 is uploaded."""
-    op64 = BsrDf64.from_csr(Ap, device="cpu")
-    if (isinstance(op, BsrMatrix)
-            and op.blocks.shape == op64.blocks_hi.shape
-            and torch.equal(op.block_cols.cpu(), op64.block_cols)):
-        lo = op64.blocks_lo.to(device)
-        return lambda x: spmv_bsr_df64_lo(op, lo, x)
-    op64 = op64.to(device)
-    return lambda x: spmv_bsr_df64(op64, x)
+    """The f64 SpMV of the refinement residual: `spmv_sell_f64` (the
+    redesigned K2) on Ap's sliced ELL. With a SellMatrix inner operator it
+    shares that structure (`cols`, `slice_off`) and uploads only the f64
+    values; otherwise it builds its own."""
+    if isinstance(op, SellMatrix):
+        op64 = op.with_f64(Ap)
+    else:
+        op64 = SellMatrix.from_csr(Ap, dtypes=(torch.float64,), device=device)
+    return lambda x: spmv_sell_f64(op64, x)
 
 
 class KrylovIrSolver(Solver):

@@ -13,8 +13,9 @@ from lsbench_tpu.matrix.generate import random_spd as j_random_spd
 from lsbench_tpu.matrix.generate import sem_2d as j_sem_2d
 from lsbench_tpu.solvers.base import get_solver as j_get_solver
 
-from lsbench_tpu_torch.matrix.bsr import BsrClassed, BsrMatrix
+from lsbench_tpu_torch.matrix.bsr import BsrMatrix
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
+from lsbench_tpu_torch.matrix.sell import SellMatrix
 from lsbench_tpu_torch.solvers import get_solver
 
 from conftest import make_rhs
@@ -62,8 +63,9 @@ def test_cg_ir_matches_jax(name, layout):
     kw = dict(layout=layout, ordering="rcm", rtol=1e-12)
     solver, port = _solve(get_solver, "cg_ir", A, b, device="cpu", **kw)
     _, jax_res = _solve(j_get_solver, "cg_ir", JA, b, **kw)
+    # The class-padded layout runs as sliced ELL in the port.
     assert isinstance(solver._op,
-                      BsrClassed if layout == "bsr_classed" else BsrMatrix)
+                      SellMatrix if layout == "bsr_classed" else BsrMatrix)
     assert port.x.device.type == "cpu" and port.x.dtype == torch.float64
     assert port.extra["refine_passes"] >= 2
     _check_parity(JA, b, port, jax_res)
@@ -77,6 +79,7 @@ def test_fp64_cg_matches_jax(name):
     solver, port = _solve(get_solver, "cg", A, b, device="cpu",
                           ordering="rcm", rtol=1e-12)
     assert solver.layout == "bsr_df64"
+    assert isinstance(solver._op, SellMatrix) and solver._op.vals is None
     # The JAX package's fp64 CG off the TPU runs its f64 ELL SpMV.
     _, jax_res = _solve(j_get_solver, "cg", JA, b, ordering="rcm",
                         rtol=1e-12)
