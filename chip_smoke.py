@@ -17,21 +17,26 @@ Phases, each of which raises (exit code 1) on failure:
 3. Main path: write each matrix to a file and run the port's CLI on it
    (`cg_ir`, RCM, rtol 1e-10, 2 trials, 1 warmup); check the reference CSV,
    convergence, the independent host f64 residual, and that the launch
-   counters show each kernel of that path ran (poisson_2d(512): the SELL
-   f32 and f64 kernels; random_spd(6408, 23): K1 and the SELL f64 kernel)
-   and the BSR K5 and K2 did not; print the peak device memory.
-4. AMG kernel: build the `amg_classical` hierarchy of RCM-ordered
+   counters show each kernel of that path ran (on both matrices the SELL
+   f32 and f64 kernels) and the BSR K1, K5 and K2 did not; print the peak
+   device memory.
+4. AMG kernels: build the `amg_classical` hierarchy of RCM-ordered
    poisson_2d(512) once and compare the window-ELL kernel (K4) with its
    plain version (within 1e-5·max|y|) and with the host f64 CSR matvec
    (within 2e-5·max|y|) on every operator laid out as window-ELL, with the
    median CUDA-event times of the wrapper and the plain version, and the
-   device time of the kernel alone over back-to-back launches.
+   device time of the kernel alone over back-to-back launches; likewise
+   the SELL f32 kernel (the redesigned K1) on every operator laid out as
+   SELL, rectangular transfers included, with its times, bound and
+   cuSPARSE's on the level-1 A.
 5. AMG-CG-IR path: the CLI with `cg_ir --precond amg_classical --ordering
    rcm --rtol 1e-10` on poisson_2d(512); it must converge to true relres
-   ≤ 1e-10 through the SELL f32 kernel, K1, K4 and the SELL f64 kernel.
+   ≤ 1e-10 through the SELL f32 kernel, K4 and the SELL f64 kernel, with
+   no K1 launch.
 6. Fixed-cycle backend path: the CLI with `--solver hypre` (2 V-cycles) on
-   poisson_2d(512): the record must say `fp64(fp32_cycles_auto)`, K4 and K1
-   must run, the true relres must be finite and below 1. Then the same
+   poisson_2d(512): the record must say `fp64(fp32_cycles_auto)`, K4 and
+   the SELL f32 kernel must run (K1 not), the true relres must be finite
+   and below 1. Then the same
    solve of poisson_2d(128) on the card and with `--platform cpu` (the
    plain versions): the two true relres agree to 1e-3 relative.
 7. Multi-RHS kernel (K3, in phase 2): `spmm_bsr` on the uniform layouts of
@@ -41,7 +46,8 @@ Phases, each of which raises (exit code 1) on failure:
 8. Multi-RHS paths through the CLI: `--solver cg --nrhs 8` (block CG, rtol
    1e-10, RCM) on both matrices, `--solver ginkgo --nrhs 8` (batched
    BiCGSTAB) on poisson_2d(512), one-RHS `--solver ginkgo` (bicgstab_ir,
-   `fp64(fp32_ir_auto)`) on random_spd(6408, 23), each through its kernels;
+   `fp64(fp32_ir_auto)`, SELL f32 and f64) on random_spd(6408, 23), each
+   through its kernels;
    then `--solver cg --nrhs 4` on poisson_2d(128) on the card and with
    `--platform cpu`: both reach 1e-10 within max(3, 10%) block iterations
    of each other, and the CPU run launches nothing.
@@ -62,18 +68,37 @@ Phases, each of which raises (exit code 1) on failure:
    of its plain version, the f64 one also within 1e-13·max|y| of the host
    f64 CSR matvec, bitwise repeatable, with the wrapper's median
    CUDA-event time, the kernel alone over back-to-back launches, bytes,
-   bound and cuSPARSE's time. Since the main path no longer runs the BSR
-   K5 and K2, phase 2 also drives their public entries once (the "bsr
-   classed/df64 API" path), each result within 5e-13·max|y| (K2) or
-   2e-5·max|y| (K5) of the host f64 matvec.
+   bound and cuSPARSE's time (random_spd's row is K1's operator). Since
+   no solver path runs the BSR K1, K5 and K2, phase 2 also drives their
+   public entries once (the "bsr K1/classed/df64 API" path), each result
+   within 5e-13·max|y| (K2) or 2e-5·max|y| (K1, K5) of the host f64 matvec.
+12. Direct solvers through the CLI, each to true relres ≤ 1e-10: no
+   `--solver` (the reference's default, `cholmod`) and `--solver cusolver`
+   on random_spd(6408, 23) (`fp64(fp32_ir_auto)`, through the SELL f64
+   kernel); `cholmod --ordering amd` on poisson_2d(512), delegated to the
+   sparse host schedule, which launches nothing (fill, ordering, symbolic
+   and factor times); `sparse_cholesky --opt schedule=block --ordering amd`
+   on poisson_2d(512) (f32 blocked sweeps on the card refined through the
+   SELL f64 kernel; blocks and levels); `cholmod --nrhs 8` on
+   random_spd(6408, 23) (worst column); `cholmod` on poisson_2d(64) on the
+   card and with `--platform cpu`: the same refinement passes, no launch
+   on the CPU run.
+13. Native FP64 against f32 + refinement for the dense direct path on
+   random_spd(6408, 23) (not a path: nothing on the main path runs the f64
+   factor): `torch.linalg.cholesky` in f64, two f64 triangular solves and
+   two refinement passes, against `cholesky_ir` factor-once and refactor;
+   true relres, factor and solve seconds of each.
 
 Each path's launch counts are read from counters set to 0 just before it.
-Beside each kernel's times the record carries its bound (`bound_ms`: the
-larger of the bytes it must move over 3.35 TB/s and its operations over
-the card's peak for their type) and the time of the cuSPARSE product
+Beside each kernel's times the record carries the bound of its function
+(`bound_ms`: the larger of the bytes y = A·x must move, with A in CSR form
+(values, int32 column indices and row offsets) and x read and y written
+once, over 3.35 TB/s, and its 2·nnz operations over the card's peak for
+their type) and the time of the cuSPARSE product
 `torch.sparse_csr_tensor(...) @ x` on the same operator (`library_ms`,
-timed here only; the port never calls it). The log also prints the bytes
-bound of the operator's CSR form beside each bound. The last two lines are the
+timed here only; the port never calls it). The log also prints the bound
+of the bytes the kernel's own layout streams (its padding included) beside
+each bound. The last two lines are the
 per-kernel JSON record (launches summed over the paths; `launches_by_path`
 in the order of `PATHS`) and `{"ok": true, "device": {...}}`. Without a
 CUDA device it prints no result and exits 1. Nothing here imports JAX.
@@ -130,7 +155,13 @@ PATHS = ("cg_ir poisson_2d(512) + random_spd(6408,23)",
          "spmv variants API poisson_2d(512) + random_spd(6408,23)",
          "cg_ir --opt layout=ell poisson_2d(512)",
          "cg --opt layout=bsr_xla random_spd(6408,23)",
-         "bsr classed/df64 API poisson_2d(512) + random_spd(6408,23)")
+         "bsr K1/classed/df64 API poisson_2d(512) + random_spd(6408,23)",
+         "cholmod (no --solver) random_spd(6408,23)",
+         "cusolver random_spd(6408,23)",
+         "cholmod --ordering amd poisson_2d(512)",
+         "sparse_cholesky --opt schedule=block --ordering amd poisson_2d(512)",
+         "cholmod --nrhs 8 random_spd(6408,23)",
+         "cholmod poisson_2d(64)")
 # H100 SXM data sheet: HBM3 rate, and peak rates outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
@@ -198,11 +229,19 @@ def bound(nbytes: int, flops: int, kind: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def csr_bound_ms(A, value_bytes: int, k: int = 1) -> float:
-    """The bytes bound of the same product on the CSR form of A: values and
-    int32 column indices of the nonzeros, int32 row offsets, x and y."""
+def function_bound(A, value_bytes: int, kind: str, k: int = 1
+                   ) -> tuple[float, str]:
+    """The bound of Y = A·X with X of k columns, whatever the layout: the
+    bytes of A in CSR form (values and int32 column indices of the
+    nonzeros, int32 row offsets), X read and Y written once; 2 operations
+    per nonzero and column."""
     nbytes = (A.nnz * (value_bytes + 4) + (A.nrows + 1) * 4
               + (A.ncols + A.nrows) * value_bytes * k)
+    return bound(nbytes, 2 * A.nnz * k, kind)
+
+
+def layout_bound_ms(nbytes: int) -> float:
+    """The bytes bound of a layout that streams nbytes (padding included)."""
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -318,20 +357,16 @@ def kernel_phase(matrices) -> tuple[dict, dict]:
         entry = results.setdefault(name, {"max_abs_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         if shape == main_shape[name]:
-            vb = 8 if f64 else 4
-            # The function's bytes: every array of the layout once, x read
-            # and y written once. K2 does 3 FP64 operations per stored
-            # element (hi + lo, multiply, add); the f32 kernels 2.
-            elems = nbytes // (8 if f64 else 4)
-            b_ms, b_by = bound(nbytes + layout_index_bytes[name]
-                               + (A.ncols + A.nrows) * vb,
-                               (3 if f64 else 2) * elems,
-                               "f64" if f64 else "f32")
+            vb = 8 if f64 else 4  # K2's hi/lo f32 pair is 8 B per value
+            b_ms, b_by = function_bound(A, vb, "f64" if f64 else "f32")
+            lay = (nbytes + layout_index_bytes[name]
+                   + (A.ncols + A.nrows) * vb)
             lib = library_ms(A, lib_dtype[f64], x)
             entry.update(ms=ms, plain_ms=plain_ms, shape=shape,
                          bound_ms=b_ms, bound_by=b_by, library_ms=lib)
-            print(f"  bound {b_ms:.4f} ms ({b_by}), CSR bound "
-                  f"{csr_bound_ms(A, vb):.4f} ms, cuSPARSE {lib:.4f} ms")
+            print(f"  bound {b_ms:.4f} ms ({b_by}), layout bound "
+                  f"{layout_bound_ms(lay):.4f} ms ({lay} B), cuSPARSE "
+                  f"{lib:.4f} ms")
     results["spmm_bsr_f32"] = spmm_cases(
         {"poisson_2d(512) RCM uniform": (P, p_uni),
          "random_spd(6408,23) RCM uniform": (R, r_uni)}, rng)
@@ -343,11 +378,11 @@ def kernel_phase(matrices) -> tuple[dict, dict]:
 
 
 def bsr_api_path(P, R, p_cls, p_64, r_uni, r_lo) -> dict:
-    """The BSR K5 and K2, which no solver path runs since the sliced-ELL
-    kernels took their place: each public entry once (classed on RCM
-    poisson_2d(512), df64 on it, df64_lo on RCM random_spd(6408, 23)),
-    counters set to 0 just before and read just after, each result held to
-    the host f64 matvec. Returns the counts."""
+    """The BSR K1, K5 and K2, which no solver path runs since the
+    sliced-ELL kernels took their place: each public entry once (uniform K1
+    on RCM random_spd(6408, 23), classed on RCM poisson_2d(512), df64 on
+    it, df64_lo on random_spd), counters set to 0 just before and read just
+    after, each result held to the host f64 matvec. Returns the counts."""
     import torch
 
     from lsbench_tpu_torch.ops import spmv_bsr as ops
@@ -357,8 +392,11 @@ def bsr_api_path(P, R, p_cls, p_64, r_uni, r_lo) -> dict:
     x32 = torch.as_tensor(xp, dtype=torch.float32, device=dev)
     xp64 = torch.as_tensor(xp, device=dev)
     xr64 = torch.as_tensor(xr, device=dev)
+    xr32 = torch.as_tensor(xr, dtype=torch.float32, device=dev)
     reset_counts()
-    out = {"spmv_bsr_classed [poisson_2d(512)]": (
+    out = {"spmv_bsr [random_spd(6408,23)]": (
+               R, xr, ops.spmv_bsr(r_uni, xr32), 2e-5),
+           "spmv_bsr_classed [poisson_2d(512)]": (
                P, xp, ops.spmv_bsr_classed(p_cls, x32), 2e-5),
            "spmv_bsr_df64 [poisson_2d(512)]": (
                P, xp, ops.spmv_bsr_df64(p_64, xp64), 5e-13),
@@ -366,7 +404,8 @@ def bsr_api_path(P, R, p_cls, p_64, r_uni, r_lo) -> dict:
                R, xr, ops.spmv_bsr_df64_lo(r_uni, r_lo, xr64), 5e-13)}
     torch.cuda.synchronize()
     counts = read_counts()
-    check(counts["bsr_classed_f32"] == len(p_cls.blocks)
+    check(counts["bsr_f32"] == 1
+          and counts["bsr_classed_f32"] == len(p_cls.blocks)
           and counts["bsr_f64acc"] == 2, f"bsr API path launches {counts}")
     for label, (A, x_np, y, rel) in out.items():
         y_host = A.matvec(x_np)
@@ -375,7 +414,7 @@ def bsr_api_path(P, R, p_cls, p_64, r_uni, r_lo) -> dict:
         check(y.shape == (A.nrows,) and err <= tol,
               f"{label}: max|kernel - host f64| = {err:.3e} > {tol:.3e}")
         print(f"bsr API {label}: host_err={err:.3e} (tol {tol:.3e})")
-    print(f"bsr classed/df64 API path: launches={counts}")
+    print(f"bsr K1/classed/df64 API path: launches={counts}")
     return counts
 
 
@@ -506,7 +545,7 @@ def sell_cases(matrices, rng) -> dict:
             vb = 8 if f64 else 4
             nbytes = ((vb + 4) * S.n_stored + 8 * S.slice_off.numel()
                       + vb * (A.ncols + A.nrows))
-            b_ms, b_by = bound(nbytes, 2 * S.n_stored, "f64" if f64 else "f32")
+            b_ms, b_by = function_bound(A, vb, "f64" if f64 else "f32")
             lib_ms = library_ms(A, dtype, x)
             fmt = lambda v: "n/a" if v is None else f"{v:.4f}"  # noqa: E731
             print(f"kernel {tag}: max_abs_err={err:.3e} (tol {tol:.3e}) "
@@ -517,16 +556,21 @@ def sell_cases(matrices, rng) -> dict:
                   f"{plain_ms:.4f} ms; {nbytes} B: {nbytes / ms / 1e6:.1f} "
                   f"GB/s by the wrapper, {nbytes / alone / 1e6:.1f} GB/s "
                   f"alone")
-            print(f"  bound {b_ms:.4f} ms ({b_by}), CSR bound "
-                  f"{csr_bound_ms(A, vb):.4f} ms, cuSPARSE {lib_ms:.4f} ms")
+            print(f"  bound {b_ms:.4f} ms ({b_by}), layout bound "
+                  f"{layout_bound_ms(nbytes):.4f} ms ({nbytes} B), cuSPARSE "
+                  f"{lib_ms:.4f} ms")
             entry = results.setdefault(name, {"max_abs_err": 0.0})
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            times = dict(ms=ms, plain_ms=plain_ms, launch_ms=alone,
+                         wrapper_host_ms=host_ms, device_ms_l2_warm=warm,
+                         device_ms_l2_cold=cold, shape=f"{label} RCM sell",
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
             if label == "poisson_2d(512)":
-                entry.update(ms=ms, plain_ms=plain_ms, launch_ms=alone,
-                             wrapper_host_ms=host_ms,
-                             device_ms_l2_warm=warm, device_ms_l2_cold=cold,
-                             shape=f"{label} RCM sell", bound_ms=b_ms,
-                             bound_by=b_by, library_ms=lib_ms)
+                entry.update(times)
+            else:
+                # K1's operator: random_spd's uniform layout in the JAX
+                # package, sliced ELL on the port's solver paths.
+                entry[label] = times
         del S
     del flush
     torch.cuda.empty_cache()
@@ -576,17 +620,16 @@ def spmm_cases(layouts, rng) -> dict:
             result["max_abs_err"] = max(result["max_abs_err"],
                                         float(err.max()))
             if k == 8 and shape.startswith("poisson_2d(512)"):
-                b_ms, b_by = bound(
-                    nbytes + op.block_cols.numel() * 4
-                    + (A.ncols + A.nrows) * 4 * k,
-                    2 * k * op.blocks.numel(), "f32")
+                b_ms, b_by = function_bound(A, 4, "f32", k)
+                lay = (nbytes + op.block_cols.numel() * 4
+                       + (A.ncols + A.nrows) * 4 * k)
                 lib = library_ms(A, torch.float32, X)
                 result.update(ms=ms, plain_ms=plain_ms,
                               shape=f"{shape}, k=8", bound_ms=b_ms,
                               bound_by=b_by, library_ms=lib)
-                print(f"  bound {b_ms:.4f} ms ({b_by}), CSR bound "
-                      f"{csr_bound_ms(A, 4, k):.4f} ms, cuSPARSE SpMM "
-                      f"{lib:.4f} ms")
+                print(f"  bound {b_ms:.4f} ms ({b_by}), layout bound "
+                      f"{layout_bound_ms(lay):.4f} ms ({lay} B), cuSPARSE "
+                      f"SpMM {lib:.4f} ms")
     return result
 
 
@@ -599,8 +642,7 @@ def main_path_phase(matrices) -> dict:
     from lsbench_tpu_torch.harness.cli import main as cli_main
     from lsbench_tpu_torch.matrix.io import write_matrix
 
-    expect = {"poisson_2d(512)": ("sell_f32", "sell_f64"),
-              "random_spd(6408,23)": ("bsr_f32", "sell_f64")}
+    expect = ("sell_f32", "sell_f64")
     total = {}
     with tempfile.TemporaryDirectory() as tmp:
         for label, A in matrices.items():
@@ -633,9 +675,9 @@ def main_path_phase(matrices) -> dict:
             check(rec["converged"] is True, f"{label}: not converged")
             check(rec["true_relres"] <= 1e-10,
                   f"{label}: true_relres {rec['true_relres']:.3e} > 1e-10")
-            for k in expect[label]:
+            for k in expect:
                 check(ran[k] > 0, f"{label}: kernel {k} never launched")
-            for k in ("bsr_classed_f32", "bsr_f64acc"):
+            for k in ("bsr_f32", "bsr_classed_f32", "bsr_f64acc"):
                 check(ran[k] == 0, f"{label}: BSR kernel {k} launched {ran}")
             for k, v in ran.items():
                 total[k] = total.get(k, 0) + v
@@ -692,13 +734,40 @@ def well_launch_ms(op, x) -> float:
         xt.data_ptr(), y.data_ptr(), op.n_pad, op.k_real, stream))
 
 
-def amg_kernel_phase(A) -> dict:
-    """K4 against its plain version and the host f64 matvec on every
-    window-ELL operator of the amg_classical hierarchy of RCM-ordered
-    poisson_2d(512). Returns {max_abs_err, ms, plain_ms, shape} with the
-    times of the level-0 P."""
+def sell_operator_times(M, S, x) -> dict:
+    """The SELL f32 wrapper's median time, the kernel alone, the function's
+    bound, the layout's bytes and their bound, and cuSPARSE's time on
+    operator M laid out as S, x on the card."""
     import torch
 
+    from lsbench_tpu_torch.ops import _cuda
+    from lsbench_tpu_torch.ops import spmv_sell as ops
+    y = torch.empty(M.nrows, dtype=torch.float32, device=x.device)
+    args = (S.vals.data_ptr(), S.cols.data_ptr(), S.slice_off.data_ptr(),
+            x.data_ptr(), y.data_ptr(), M.nrows,
+            torch.cuda.current_stream().cuda_stream)
+    nbytes = 8 * S.n_stored + 8 * S.slice_off.numel() + 4 * (M.ncols
+                                                              + M.nrows)
+    b_ms, b_by = function_bound(M, 4, "f32")
+    return {"ms": median_ms(lambda: ops.spmv_sell(S, x)),
+            "kernel_alone_ms": kernel_alone_ms(
+                _cuda.library("sell_spmv").lsb_spmv_sell_f32, args),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "layout_bound_ms": layout_bound_ms(nbytes),
+            "library_ms": library_ms(M, torch.float32, x)}
+
+
+def amg_kernel_phase(A) -> tuple[dict, dict]:
+    """K4 against its plain version and the host f64 matvec on every
+    window-ELL operator of the amg_classical hierarchy of RCM-ordered
+    poisson_2d(512), and the SELL f32 kernel (the redesigned K1) on every
+    operator laid out as SELL. Returns K4's {max_abs_err, ms, plain_ms,
+    shape} with the times of the level-0 P, and the SELL kernel's times on
+    the level-1 A."""
+    import torch
+
+    from lsbench_tpu_torch.matrix.sell import SellMatrix
+    from lsbench_tpu_torch.ops import spmv_sell
     from lsbench_tpu_torch.ops.interp_well import (WindowEll, spmv_well,
                                                    spmv_well_plain)
     from lsbench_tpu_torch.ordering import rcm_ordering
@@ -720,17 +789,49 @@ def amg_kernel_phase(A) -> dict:
           f"{time.perf_counter() - t0:.2f} s, coarse n={coarse.nrows}")
 
     result = {"max_abs_err": 0.0}
+    sell_level1 = {}
     rng = np.random.default_rng(1)
-    n_well = 0
+    n_well = n_sell = 0
     for lvl, (m, lp) in enumerate(zip(mats, params)):
         print(f"  level {lvl}: n={m['A'].nrows} nnz(A)={m['A'].nnz} "
               + " ".join(f"{k.upper()}=[{_op_summary(lp[k])}]"
                          for k in ("a", "p", "r")))
         for key in ("a", "p", "r"):
             op = lp[key]
+            M = m[key.upper()]
+            if isinstance(op, SellMatrix):
+                # The redesigned K1 on each operator the JAX package lays
+                # out as BSR (rectangular ones included: x has ncols).
+                x_np = rng.standard_normal(M.ncols)
+                x = torch.as_tensor(x_np, dtype=torch.float32, device=dev)
+                y_k = spmv_sell.spmv_sell(op, x)
+                y_p = spmv_sell.spmv_sell_plain(op, x)
+                torch.cuda.synchronize()
+                label = f"level {lvl} {key.upper()} ({M.nrows}x{M.ncols})"
+                err = float((y_k - y_p).abs().max())
+                tol = 1e-5 * float(y_p.abs().max())
+                y_host = M.matvec(x_np)
+                host_err = float(np.abs(y_k.double().cpu().numpy()
+                                        - y_host).max())
+                host_tol = 2e-5 * float(np.abs(y_host).max())
+                check(y_k.shape == (M.nrows,) and err <= tol
+                      and host_err <= host_tol,
+                      f"spmv_sell_f32 [{label}]: shape {tuple(y_k.shape)}, "
+                      f"max|kernel - plain| {err:.3e} (tol {tol:.3e}), "
+                      f"max|kernel - host f64| {host_err:.3e} (tol "
+                      f"{host_tol:.3e})")
+                n_sell += 1
+                if lvl == 1 and key == "a":
+                    sell_level1 = sell_operator_times(M, op, x)
+                    sell_level1["shape"] = f"amg_classical {label}"
+                    print(f"kernel spmv_sell_f32 [{label}]: max_abs_err="
+                          f"{err:.3e} host_err={host_err:.3e} "
+                          + " ".join(f"{k}={v:.4f}" if isinstance(v, float)
+                                     else f"{k}={v}"
+                                     for k, v in sell_level1.items()))
+                continue
             if not isinstance(op, WindowEll):
                 continue
-            M = m[key.upper()]
             x_np = rng.standard_normal(M.ncols)
             x = torch.as_tensor(x_np, dtype=torch.float32, device=dev)
             y_k = spmv_well(op, x)
@@ -761,23 +862,24 @@ def amg_kernel_phase(A) -> dict:
             result["max_abs_err"] = max(result["max_abs_err"], err)
             n_well += 1
             if lvl == 0 and key == "p":
-                b_ms, b_by = bound(
-                    4 * (op.vals.numel() + op.lcols.numel() + op.w0.numel()
-                         + M.ncols + M.nrows), 2 * op.vals.numel(), "f32")
+                b_ms, b_by = function_bound(M, 4, "f32")
+                lay = 4 * (op.vals.numel() + op.lcols.numel()
+                           + op.w0.numel() + M.ncols + M.nrows)
                 lib = library_ms(M, torch.float32, x)
                 result.update(ms=ms, plain_ms=plain_ms, launch_ms=launch_ms,
                               shape=f"poisson_2d(512) RCM amg_classical "
                                     f"{label}, k8={op.k8} "
                                     f"k_real={op.k_real} J={op.j_blocks}",
                               bound_ms=b_ms, bound_by=b_by, library_ms=lib)
-                print(f"  bound {b_ms:.4f} ms ({b_by}), CSR bound "
-                      f"{csr_bound_ms(M, 4):.4f} ms, cuSPARSE "
+                print(f"  bound {b_ms:.4f} ms ({b_by}), layout bound "
+                      f"{layout_bound_ms(lay):.4f} ms ({lay} B), cuSPARSE "
                       f"{lib:.4f} ms")
     check("ms" in result, "level-0 P is not window-ELL")
-    print(f"  {n_well} window-ELL operators checked")
+    check(bool(sell_level1), "level-1 A is not SELL")
+    print(f"  {n_well} window-ELL and {n_sell} SELL operators checked")
     del params
     torch.cuda.empty_cache()
-    return result
+    return result, sell_level1
 
 
 def cli_path(label: str, fname: str, argv: list[str]):
@@ -821,8 +923,9 @@ def amg_paths_phase(tmp: str, A512, A128) -> list[dict]:
     check(rec["converged"] is True, "amg-cg-ir: not converged")
     check(rec["true_relres"] <= 1e-10,
           f"amg-cg-ir: true_relres {rec['true_relres']:.3e} > 1e-10")
-    for k in ("sell_f32", "bsr_f32", "well_f32", "sell_f64"):
+    for k in ("sell_f32", "well_f32", "sell_f64"):
         check(ran[k] > 0, f"amg-cg-ir: kernel {k} never launched")
+    check(ran["bsr_f32"] == 0, f"amg-cg-ir: K1 launched {ran}")
     bd = rec["setup_breakdown"]
     print(f"amg-cg-ir path poisson_2d(512): iters={rec['iters']} "
           f"passes={rec['refine_passes']} "
@@ -841,8 +944,9 @@ def amg_paths_phase(tmp: str, A512, A128) -> list[dict]:
           f"hypre: precision {rec['precision']}")
     check(bool(np.isfinite(rec["true_relres"])) and rec["true_relres"] < 1,
           f"hypre: true_relres {rec['true_relres']}")
-    for k in ("well_f32", "bsr_f32"):
+    for k in ("well_f32", "sell_f32"):
         check(ran[k] > 0, f"hypre: kernel {k} never launched")
+    check(ran["bsr_f32"] == 0, f"hypre: K1 launched {ran}")
     print(f"hypre path poisson_2d(512): cycles={rec['iters']} "
           f"levels={rec['levels']} relres={rec['relres']:.4e} "
           f"true_relres={rec['true_relres']:.4e} "
@@ -938,8 +1042,8 @@ def multi_rhs_paths_phase(tmp: str, matrices, A128) -> list[dict]:
           f"ginkgo: precision {rec['precision']}")
     check(rec["converged"] is True and rec["true_relres"] <= 1e-4,
           f"ginkgo: true_relres {rec['true_relres']:.3e}")
-    check(ran["bsr_f32"] + ran["sell_f32"] > 0 and ran["sell_f64"] > 0,
-          f"ginkgo: kernels {ran}")
+    check(ran["sell_f32"] > 0 and ran["sell_f64"] > 0
+          and ran["bsr_f32"] == 0, f"ginkgo: kernels {ran}")
     print(f"ginkgo path {label} (one RHS, bicgstab_ir): iters={rec['iters']}"
           f" passes={rec['refine_passes']} precision={rec['precision']} "
           f"true_relres={rec['true_relres']:.3e} solve_s={rec['solve_s']:.5f}"
@@ -1038,18 +1142,16 @@ def variant_kernels_phase(matrices) -> tuple[dict, dict]:
         lib = library_ms(P, torch.float32, x)
         sel_bytes = B.sel.numel() * 4
         io_bytes = (P.ncols + P.nrows) * 4
-        # Each function's bytes: the arrays its kernel reads, x read and y
-        # written once; 2 flops per stored block element (the gathers are
-        # exact selections, not products).
+        # The bytes each kernel's layout streams: the arrays it reads (x and
+        # y are added in the layout bound).
         work = {
             "spmv_bsr_compact_f32": (
                 C.bytes_streamed + 4 * (C.bcols.numel() + C.goff.numel()),
-                C.blocks.numel(), "compact"),
+                "compact"),
             "spmv_bsr_selector_f32": (B.bytes_streamed + sel_bytes,
-                                      B.blocks.numel(), "uniform + selector"),
+                                      "uniform + selector"),
             "spmv_bsr_onehot_f32": (B.bytes_streamed
-                                    + 4 * B.block_cols.numel(),
-                                    B.blocks.numel(), "uniform"),
+                                    + 4 * B.block_cols.numel(), "uniform"),
         }
         for name, (fn, plain, idx) in entries.items():
             op = (P, B, C)[idx]
@@ -1060,10 +1162,10 @@ def variant_kernels_phase(matrices) -> tuple[dict, dict]:
             tol = 1e-5 * scale
             check(err <= tol, f"{name} [{label}]: max|kernel - plain| = "
                               f"{err:.3e} > {tol:.3e}")
-            nbytes, elems, kind = work[name]
+            nbytes, kind = work[name]
             ms = median_ms(lambda: fn(op, x))
             plain_ms = median_ms(lambda: plain(op, x))
-            b_ms, b_by = bound(nbytes + io_bytes, 2 * elems, "f32")
+            b_ms, b_by = function_bound(P, 4, "f32")
             print(f"kernel {name} [{label} RCM {kind}]: max_abs_err="
                   f"{err:.3e} (tol {tol:.3e}) host_err="
                   f"{host_errs[label, name]:.3e} kernel {ms:.4f} ms "
@@ -1071,8 +1173,9 @@ def variant_kernels_phase(matrices) -> tuple[dict, dict]:
                   f"{plain_ms:.4f} ms")
             entry = results.setdefault(name, {"max_abs_err": 0.0})
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
-            print(f"  bound {b_ms:.4f} ms ({b_by}), CSR bound "
-                  f"{csr_bound_ms(P, 4):.4f} ms, cuSPARSE {lib:.4f} ms")
+            print(f"  bound {b_ms:.4f} ms ({b_by}), layout bound "
+                  f"{layout_bound_ms(nbytes + io_bytes):.4f} ms, cuSPARSE "
+                  f"{lib:.4f} ms")
             if label == "poisson_2d(512)":
                 entry.update(ms=ms, plain_ms=plain_ms,
                              shape=f"{label} RCM {kind}", bound_ms=b_ms,
@@ -1121,6 +1224,183 @@ def layout_paths_phase(tmp: str, matrices) -> list[dict]:
     return counts
 
 
+def direct_paths_phase(tmp: str, matrices, A64) -> list[dict]:
+    """The direct solvers through the CLI: the default solver (cholmod) and
+    cusolver on random_spd(6408,23), cholmod --ordering amd (delegated to
+    the sparse host schedule) and sparse_cholesky's blocked device schedule
+    on poisson_2d(512), cholmod --nrhs 8, and cholmod on poisson_2d(64) on
+    the card against --platform cpu. Returns each path's launch counts."""
+    from lsbench_tpu_torch.matrix.io import write_matrix
+
+    files = {}
+    for label, A in (*matrices.items(), ("poisson_2d(64)", A64)):
+        files[label] = os.path.join(tmp, label.split("(")[0]
+                                    + f"_{A.nrows}_direct.txt")
+        write_matrix(A, files[label])
+    rspd, p512 = files["random_spd(6408,23)"], files["poisson_2d(512)"]
+    timed = ["--rtol", "1e-10", "--trials", "2", "--warmups", "1", "--json"]
+    counts = []
+
+    def dense_ir(label, fname, argv, solver, nrhs=1):
+        t0 = time.perf_counter()
+        rec, ran, wall = cli_path(label, fname, argv + timed)
+        check(rec["solver"] == solver, f"{label}: solver {rec['solver']}")
+        check(rec["precision"] == "fp64(fp32_ir_auto)",
+              f"{label}: precision {rec['precision']}")
+        check(rec.get("nrhs", 1) == nrhs, f"{label}: nrhs {rec.get('nrhs')}")
+        check(rec["converged"] is True and rec["true_relres"] <= 1e-10,
+              f"{label}: true_relres {rec['true_relres']:.3e}")
+        check(ran["sell_f64"] > 0, f"{label}: sell_f64 never launched {ran}")
+        print(f"{label} path: passes={rec['refine_passes']} precision="
+              f"{rec['precision']} true_relres={rec['true_relres']:.3e} "
+              f"setup_s={rec['setup_s']:.3f} (factor_s="
+              f"{rec['setup_breakdown']['factor_s']:.3f}) solve_s="
+              f"{rec['solve_s']:.5f}"
+              + (f" per-RHS ms={rec['solve_s'] / nrhs * 1e3:.3f} relres_cols="
+                 f"{max(rec['relres_cols']):.3e}" if nrhs > 1 else "")
+              + f" first_call_s={rec['first_call_s']:.3f} cli_wall_s="
+              f"{wall:.2f} launches={ran} "
+              f"phase_s={time.perf_counter() - t0:.2f}")
+        counts.append(ran)
+        return rec
+
+    dense_ir("cholmod (no --solver) random_spd(6408,23)", rspd, [], "cholmod")
+    dense_ir("cusolver random_spd(6408,23)", rspd, ["--solver", "cusolver"],
+             "cusolver")
+
+    for label, argv, schedule in (
+            ("cholmod --ordering amd poisson_2d(512)",
+             ["--solver", "cholmod", "--ordering", "amd"], "host"),
+            ("sparse_cholesky block --ordering amd poisson_2d(512)",
+             ["--solver", "sparse_cholesky", "--opt", "schedule=block",
+              "--ordering", "amd"], "block")):
+        t0 = time.perf_counter()
+        rec, ran, wall = cli_path(label, p512, argv + [
+            "--rtol", "1e-10", "--trials", "1", "--warmups", "1", "--json"])
+        check(rec["schedule"] == schedule, f"{label}: schedule "
+                                           f"{rec['schedule']}")
+        check(rec["converged"] is True and rec["true_relres"] <= 1e-10,
+              f"{label}: true_relres {rec['true_relres']:.3e}")
+        if schedule == "host":
+            check(rec.get("delegated") == "sparse_cholesky",
+                  f"{label}: delegated {rec.get('delegated')}")
+            check(sum(ran.values()) == 0, f"{label}: host schedule launched "
+                                          f"{ran}")
+        else:
+            check(rec["precision"] == "fp64(fp32_ir_auto)",
+                  f"{label}: precision {rec['precision']}")
+            check(ran["sell_f64"] > 0, f"{label}: sell_f64 never launched")
+        bd = rec["setup_breakdown"]
+        print(f"{label} path: delegated={rec.get('delegated')} schedule="
+              f"{rec['schedule']} precision={rec['precision']} fill_nnz="
+              f"{rec['fill_nnz']} (the JAX package's AMD: 9.06M) blocks="
+              f"{rec['blocks']} levels={rec['levels']} true_relres="
+              f"{rec['true_relres']:.3e} setup_s={rec['setup_s']:.3f} "
+              f"(ordering_s={bd['ordering_s']:.3f} symbolic_s="
+              f"{bd['symbolic_s']:.3f} factor_s={bd['factor_s']:.3f} "
+              f"level_build_s={bd['level_build_s']:.3f}) solve_s="
+              f"{rec['solve_s']:.4f} first_call_s={rec['first_call_s']:.3f} "
+              f"cli_wall_s={wall:.2f} launches={ran} "
+              f"phase_s={time.perf_counter() - t0:.2f}")
+        counts.append(ran)
+
+    dense_ir("cholmod --nrhs 8 random_spd(6408,23)", rspd,
+             ["--solver", "cholmod", "--nrhs", "8"], "cholmod", nrhs=8)
+
+    t0 = time.perf_counter()
+    small = ["--solver", "cholmod", "--trials", "1", "--warmups", "1",
+             "--json"]
+    f64 = files["poisson_2d(64)"]
+    rec_dev, ran, _ = cli_path("cholmod 64 cuda", f64, small)
+    counts.append(ran)
+    check(ran["sell_f64"] > 0, f"cholmod poisson_2d(64): launches {ran}")
+    rec_cpu, ran_cpu, _ = cli_path("cholmod 64 cpu", f64,
+                                   small + ["--platform", "cpu"])
+    check(sum(ran_cpu.values()) == 0, f"--platform cpu launched {ran_cpu}")
+    for where, rec in (("card", rec_dev), ("cpu", rec_cpu)):
+        check(rec["converged"] is True and rec["true_relres"] <= 1e-10,
+              f"cholmod poisson_2d(64) {where}: true_relres "
+              f"{rec['true_relres']:.3e}")
+    check(rec_dev["refine_passes"] == rec_cpu["refine_passes"],
+          f"cholmod poisson_2d(64): {rec_dev['refine_passes']} passes on the "
+          f"card, {rec_cpu['refine_passes']} with the plain versions")
+    print(f"cholmod poisson_2d(64): card {rec_dev['refine_passes']} passes, "
+          f"true_relres {rec_dev['true_relres']:.3e}; plain (cpu) "
+          f"{rec_cpu['refine_passes']}, {rec_cpu['true_relres']:.3e} "
+          f"phase_s={time.perf_counter() - t0:.2f}")
+    return counts
+
+
+def fp64_direct_measurement(A) -> dict:
+    """Native FP64 against f32 + refinement for the dense direct path on
+    random_spd(6408,23), natural order, b[i] = i: `torch.linalg.cholesky` in
+    f64 with two f64 triangular solves and the two refinement passes of the
+    JAX package's non-TPU branch (residual on the f64 ELL product), against
+    the port's `cholesky_ir` (factor once: the f32 inverse; refactor: an
+    f32 factor in every solve). Measured only; no path calls the f64 route.
+    Returns each one's true relres, factor and solve seconds."""
+    import torch
+
+    from lsbench_tpu_torch.matrix.ell import EllMatrix
+    from lsbench_tpu_torch.ops.spmv import spmv_ell
+    from lsbench_tpu_torch.solvers.direct import (CholeskyIrSolver, _tri,
+                                                  _symmetric_dense)
+    dev = torch.device("cuda")
+    b_np = np.arange(A.nrows, dtype=np.float64)
+    b = torch.as_tensor(b_np, device=dev)
+
+    def relres(x):
+        x = x.cpu().numpy()
+        return float(np.linalg.norm(b_np - A.matvec(x))
+                     / np.linalg.norm(b_np))
+
+    def wall(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return out, float(np.median(times))
+
+    sym = torch.as_tensor(_symmetric_dense(A), device=dev)
+    ell = EllMatrix.from_csr(A, dtype=torch.float64, device=dev)
+    L, factor_s = wall(lambda: torch.linalg.cholesky(sym))
+
+    def f64_solve(L):
+        x = _tri(L, b)
+        for _ in range(2):
+            x = x + _tri(L, b - spmv_ell(ell, x))
+        return x
+
+    x, solve_s = wall(lambda: f64_solve(L))
+    out = {"fp64 factor once": dict(true_relres=relres(x), factor_s=factor_s,
+                                    solve_s=solve_s)}
+    x, solve_s = wall(lambda: f64_solve(torch.linalg.cholesky(sym)))
+    out["fp64 refactor"] = dict(true_relres=relres(x), solve_s=solve_s)
+    del sym, L
+    for label, refactor in (("cholesky_ir factor once", False),
+                            ("cholesky_ir refactor", True)):
+        t0 = time.perf_counter()
+        s = CholeskyIrSolver(A, ordering="none", rtol=1e-10,
+                             refactor_each_solve=refactor, device=dev)
+        setup_s = time.perf_counter() - t0
+        fn = s.solve_fn()
+        x, solve_s = wall(lambda: fn(b))
+        out[label] = dict(true_relres=relres(x), setup_s=setup_s,
+                          solve_s=solve_s,
+                          refine_passes=s.solve(b).extra["refine_passes"])
+        del s, fn
+    torch.cuda.empty_cache()
+    for label, m in out.items():
+        print(f"fp64 vs f32+IR [{label}]: "
+              + " ".join(f"{k}={v:.4e}" if isinstance(v, float) else
+                         f"{k}={v}" for k, v in m.items()))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1142,7 +1422,9 @@ def main() -> int:
 
     from lsbench_tpu_torch.matrix.generate import poisson_2d
     t0 = time.perf_counter()
-    measured["spmv_well_f32"] = amg_kernel_phase(matrices["poisson_2d(512)"])
+    measured["spmv_well_f32"], sell_level1 = amg_kernel_phase(
+        matrices["poisson_2d(512)"])
+    measured["spmv_sell_f32"]["amg_level1_a"] = sell_level1
     print(f"phase amg kernel: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1163,6 +1445,14 @@ def main() -> int:
         path_counts += layout_paths_phase(tmp, matrices)
     print(f"phase layout paths: {time.perf_counter() - t0:.2f} s")
     path_counts.append(bsr_api_counts)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path_counts += direct_paths_phase(tmp, matrices, poisson_2d(64))
+    print(f"phase direct paths: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    fp64 = fp64_direct_measurement(matrices["random_spd(6408,23)"])
+    print("fp64 vs f32+IR: " + json.dumps(fp64))
+    print(f"phase fp64 vs f32+IR: {time.perf_counter() - t0:.2f} s")
     check(len(path_counts) == len(PATHS), "one launch count per path")
 
     kernels = []
@@ -1181,7 +1471,9 @@ def main() -> int:
                            if "launch_ms" in m else {}),
                         **{k: m[k] for k in ("wrapper_host_ms",
                                              "device_ms_l2_warm",
-                                             "device_ms_l2_cold") if k in m}})
+                                             "device_ms_l2_cold",
+                                             "random_spd(6408,23)",
+                                             "amg_level1_a") if k in m}})
     print("paths: " + json.dumps(PATHS))
     print(card)
     print(json.dumps({"kernels": kernels}))

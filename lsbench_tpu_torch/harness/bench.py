@@ -14,8 +14,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from lsbench_tpu_torch.matrix.csr import CsrMatrix
-from lsbench_tpu_torch.solvers.base import Solver, to_numpy
+from lsbench_tpu_torch.solvers.base import Solver, true_relres
 from lsbench_tpu_torch.utils import device_fence
 
 
@@ -102,7 +101,7 @@ def run_bench(
 
     # One reporting solve for iteration count / residual (outside timing).
     res = solver.solve(b)
-    true_relres = _relative_residual(solver.A, res.x, b)
+    relres = true_relres(solver.A, res.x, b)
 
     # A precision substitution (fp64 requested, run as f32 cycles or f32 +
     # f64 refinement) shows in the `precision` field itself, e.g.
@@ -120,22 +119,9 @@ def run_bench(
         elapsed=elapsed, setup_s=setup_s, solve_s=elapsed / max(trials, 1),
         iters=res.iters, relres=res.relres, converged=res.converged,
         precision=precision,
-        extra={"true_relres": true_relres,
+        extra={"true_relres": relres,
                "first_call_s": first_call_s,
                **({"setup_breakdown": solver.setup_breakdown}
                   if solver.setup_breakdown else {}),
                **res.extra},
     )
-
-
-def _relative_residual(A: CsrMatrix, x, b) -> float:
-    """Host-side f64 ||b - Ax|| / ||b|| — independent of the device path.
-    For multi-RHS (2-D) solves, the worst column's."""
-    xh, bh = to_numpy(x), to_numpy(b)
-    if xh.ndim == 2:
-        return max(_relative_residual(A, xh[:, j], bh[:, j])
-                   for j in range(xh.shape[1]))
-    bn = float(np.linalg.norm(bh))
-    if bn == 0.0:
-        return 0.0
-    return float(np.linalg.norm(bh - A.matvec(xh))) / bn

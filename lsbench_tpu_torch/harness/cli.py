@@ -11,7 +11,7 @@ RHS convention r[i] = i (lsbench.c:158-160).
 `--platform cuda` (the default) needs a CUDA device and exits 1 without
 one: there is no silent CPU run. `--platform cpu` runs the kernels' plain
 PyTorch versions. Flags whose machinery is not ported yet exit 1 with a
-message; an ordering, layout or preconditioner that is not ported yet
+message; a layout, preconditioner or solve schedule that is not ported yet
 does too, and nothing else is substituted for it.
 """
 
@@ -45,14 +45,9 @@ _NOT_PORTED = (("devices", "--devices"), ("mesh", "--mesh"),
                ("debug_nans", "--debug-nans"))
 
 
-def _default_solver() -> str:
-    """The reference defaults to CHOLMOD (the `cholmod` alias of the direct
-    solver); until that is ported, CG."""
-    try:
-        get_solver("cholmod")
-        return "cholmod"
-    except KeyError:
-        return "cg"
+# The reference defaults to its CHOLMOD backend (CMakeLists.txt:5): here the
+# `cholmod` alias of the direct Cholesky solver.
+DEFAULT_SOLVER = "cholmod"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -77,7 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--nrhs", type=int, default=1,
                    help="solve this many right-hand sides at once (cg "
                         "family routes to block_cg, bicgstab/ginkgo to "
-                        "batched_bicgstab; column 0 is the reference RHS "
+                        "batched_bicgstab, the Cholesky family solves all "
+                        "columns together; column 0 is the reference RHS "
                         "r[i]=i, extras are seeded random)")
     p.add_argument("--json", action="store_true", help="emit a JSON record after the CSV line")
     p.add_argument("--platform", default="cuda",
@@ -104,16 +100,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _resolve_solver_name(name: str | None) -> str:
     if name is None:
-        return _default_solver()
+        return DEFAULT_SOLVER
     try:
         get_solver(name)
         return name.lower()
     except KeyError:
         # Reference behavior: warn and default (lsbench.c:31-33).
-        default = _default_solver()
-        print(f"Invalid solver: \"{name}\". Defaulting to {default}.",
+        print(f"Invalid solver: \"{name}\". Defaulting to {DEFAULT_SOLVER}.",
               file=sys.stderr)
-        return default
+        return DEFAULT_SOLVER
 
 
 def _resolve_ordering(name: str) -> str:
@@ -195,28 +190,31 @@ def main(argv=None) -> int:
             print("nrhs: bicgstab/ginkgo with multiple RHS runs as "
                   "batched BiCGSTAB (f32 SpMM inner + f64 refinement, "
                   "mode fp32_ir).", file=sys.stderr)
-        elif resolved_cls.name not in ("block_cg", "batched_bicgstab"):
+        elif resolved_cls.name not in ("block_cg", "batched_bicgstab",
+                                       "cholesky", "cholesky_ir"):
             print(f"--nrhs > 1 is implemented for the cg family "
                   f"(block_cg), bicgstab/ginkgo (batched BiCGSTAB), and "
-                  f"the dense Cholesky family (cholmod/cusolver: "
-                  f"X = A⁻¹B as one MXU GEMM per refinement pass); "
-                  f"got '{solver_name}' (for gmres run one RHS per "
-                  f"solve).", file=sys.stderr)
+                  f"the Cholesky family (cholmod/cusolver/cholesky_ir: "
+                  f"one product or two triangular solves for all columns "
+                  f"per refinement pass); got '{solver_name}'.",
+                  file=sys.stderr)
             return 1
 
     cls, params = get_solver(solver_name)
     if precision == "fp32_ir":
         # Remap the resolved target (so alias presets such as ginkgo's
         # rtol=1e-4/jacobi survive) onto its iterative-refinement twin.
-        ir_map = {"cg": "cg_ir", "bicgstab": "bicgstab_ir"}
+        ir_map = {"cg": "cg_ir", "cholesky": "cholesky_ir",
+                  "bicgstab": "bicgstab_ir"}
         target = ir_map.get(cls.name, cls.name)
         if target not in ("block_cg", "batched_bicgstab") \
                 and not target.endswith("_ir"):
             # AMG (amg, hypre, amgx, paralmond) runs its fp64 converge
             # mode as f32 cycles + f64 refinement already; block_cg and
             # batched_bicgstab are their own IR form.
-            print(f"Precision 'fp32_ir' is only implemented for the cg "
-                  f"and bicgstab solver families (got '{solver_name}').",
+            print(f"Precision 'fp32_ir' is only implemented for the cg, "
+                  f"cholesky and bicgstab solver families (got "
+                  f"'{solver_name}').",
                   file=sys.stderr)
             return 1
         cls, _ = get_solver(target)

@@ -2,9 +2,10 @@
 paths' f32 and f64 SpMV on the card (kernels `csrc/sell_spmv.cu`, wrappers
 `ops/spmv_sell.py`).
 
-It takes the place of the class-padded `BsrClassed` (K5) and the
-f64-accurate `BsrDf64` (K2) on the solver paths; those stay, behind the ops
-API of `ops/spmv_bsr.py`. The JAX package has no counterpart: its 8×128
+It takes the place of the uniform `BsrMatrix` (K1), the class-padded
+`BsrClassed` (K5) and the f64-accurate `BsrDf64` (K2) on the solver paths;
+those stay, behind the ops API of `ops/spmv_bsr.py` (block CG's K3 still
+takes the uniform `BsrMatrix`). The JAX package has no counterpart: its 8×128
 blocks match the TPU's (8, 128) vreg tile, and on an RCM-ordered 5-point
 Poisson matrix fewer than 1% of their stored elements are nonzero.
 

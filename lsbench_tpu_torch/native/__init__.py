@@ -1,9 +1,11 @@
 """Native (C++) host components, loaded via ctypes.
 
 The sources are this package's own copies of the JAX package's native
-code (`native/reader.cpp`, `native/spgemm.cpp`), compiled with g++ into
-this package's `_build/` directory on first use. Every entry point has a
-NumPy fallback, so the port works without a toolchain.
+code (`native/reader.cpp`, `native/spgemm.cpp`, `native/mindeg.cpp`,
+`native/spchol.cpp`), compiled with g++ into this package's `_build/`
+directory on first use. Every entry point has a NumPy fallback, so the
+port works without a toolchain (the sparse Cholesky's host solve schedule
+needs `spchol.cpp`; without it `auto` picks the device schedule).
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
 """Sliced-ELL SpMV: the solver paths' f32 and f64 products, hand-written
 CUDA kernels (`csrc/sell_spmv.cu`) beside their plain PyTorch versions.
 
-    spmv_sell(S, x)      f32 y = A·x over `S.vals`    (the redesigned K5)
+    spmv_sell(S, x)      f32 y = A·x over `S.vals`    (the redesigned K1, K5)
     spmv_sell_f64(S, x)  f64 y = A·x over `S.vals64`  (the redesigned K2)
 
-They take the place of `spmv_bsr_classed` and `spmv_bsr_df64` /
+They take the place of `spmv_bsr`, `spmv_bsr_classed` and `spmv_bsr_df64` /
 `spmv_bsr_df64_lo` on every solver path (`solvers/cg.py::build_matvec`,
 `solvers/refine.py::f64_residual_matvec`); those stay in
 `ops/spmv_bsr.py`. The f64 product is an exact f64 matvec, where the TPU

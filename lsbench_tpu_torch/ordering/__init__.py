@@ -1,9 +1,12 @@
 """Bandwidth- and fill-reducing orderings (counterpart of
 `lsbench_tpu/ordering/__init__.py`).
 
-The slice ports `none` and `rcm`. AMD and nested dissection (`amd`,
-`metis`, `nd`) are ROADMAP Queue 1 items: they raise NotImplementedError,
-and no other ordering is substituted for them.
+The reference exposes `--ordering RCM|AMD|METIS` and applies the symmetric
+permutation on the host before factorization (cusparse.c:66-96). Here:
+RCM (bandwidth reduction, which also densifies the block layouts), AMD
+(fill reduction for the direct solvers) and nested dissection (`nd.py`),
+which fills the METIS role: `--ordering metis` dispatches to it. The JAX
+package's setup cache (`--cache`) is not ported.
 """
 
 from __future__ import annotations
@@ -11,9 +14,9 @@ from __future__ import annotations
 import numpy as np
 
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
+from lsbench_tpu_torch.ordering.amd import amd_ordering
+from lsbench_tpu_torch.ordering.nd import nd_ordering
 from lsbench_tpu_torch.ordering.rcm import rcm_ordering
-
-NOT_PORTED = ("amd", "metis", "nd")
 
 
 def get_ordering(name: str, A: CsrMatrix) -> np.ndarray:
@@ -24,11 +27,12 @@ def get_ordering(name: str, A: CsrMatrix) -> np.ndarray:
         return np.arange(A.nrows)
     if name == "rcm":
         return rcm_ordering(A)
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"ordering '{name}' is not yet ported to lsbench_tpu_torch "
-            "(ROADMAP.md Queue 1: amd/nd orderings)")
+    if name == "amd":
+        return amd_ordering(A)
+    if name in ("metis", "nd"):
+        # Native nested dissection fills the METIS role (cusparse.c:75-79).
+        return nd_ordering(A)
     raise KeyError(f"unknown ordering '{name}'")
 
 
-__all__ = ["get_ordering", "rcm_ordering"]
+__all__ = ["get_ordering", "rcm_ordering", "amd_ordering", "nd_ordering"]

@@ -1,12 +1,12 @@
 from lsbench_tpu_torch.solvers.base import (SolveResult, Solver, get_solver,
                                             list_solvers, register_solver)
 
-# Importing solver modules registers them. The reference backend aliases
-# register with their target solvers as those are ported: cholmod and
-# cusolver are still ROADMAP.md Queue 1 items.
+# Importing solver modules registers them.
 from lsbench_tpu_torch.solvers import cg  # noqa: F401
 from lsbench_tpu_torch.solvers import bicgstab  # noqa: F401
 from lsbench_tpu_torch.solvers import refine  # noqa: F401
+from lsbench_tpu_torch.solvers import direct  # noqa: F401
+from lsbench_tpu_torch.solvers import sparse_cholesky  # noqa: F401
 from lsbench_tpu_torch.solvers import amg  # noqa: F401
 from lsbench_tpu_torch.solvers import batched_bicgstab  # noqa: F401
 from lsbench_tpu_torch.solvers import block_cg  # noqa: F401
@@ -16,6 +16,12 @@ from lsbench_tpu_torch.solvers.base import register_alias
 # Ginkgo: BiCGSTAB + Jacobi, implicit resnorm ≤ 1e-4 × initial
 # (ginkgo.cpp:55-64).
 register_alias("ginkgo", "bicgstab", precond="jacobi", rtol=1e-4)
+# CHOLMOD: ordering and factorization at setup, the timed solve is the
+# triangular solves (cholmod-impl.h:25-26,44-63).
+register_alias("cholmod", "cholesky", refactor_each_solve=False)
+# cusolver csrlsvchol: factor and solve in every timed trial
+# (cusparse.c:183-194).
+register_alias("cusolver", "cholesky", refactor_each_solve=True)
 # Hypre BoomerAMG: classical AMG, fixed 2 V-cycles (maxiter=2 tol=0,
 # hypre.c:129,185-186), with the internals tuned on the reference workload:
 # θ=0.5, direct interpolation improved by 3 damped (ω=0.5) Jacobi passes,

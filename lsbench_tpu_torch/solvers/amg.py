@@ -8,8 +8,9 @@ Galerkin RAP (`ops/spgemm.py`), the coarse alignment. `build_hierarchy`
 then picks each operator's device layout with the JAX package's cost model
 and constants, unchanged: window-ELL (kernel K4, `ops/interp_well.py`) for
 banded narrow operators where it wins, dense for tiny coarse levels, and
-otherwise K1 on uniform BSR or, where the JAX package takes class-padded
-BSR, the sliced-ELL f32 kernel (`ops/spmv_sell.py`). The cycle is eager PyTorch over those
+otherwise (where the JAX package takes uniform or class-padded BSR, K1 or
+K5) the sliced-ELL f32 kernel (`ops/spmv_sell.py`). The cycle is eager
+PyTorch over those
 operators: V or K cycles; Chebyshev, Jacobi, ℓ1-Jacobi or hybrid ℓ1-GS
 smoothing; a dense Cholesky solve on the coarsest level.
 

@@ -23,6 +23,19 @@ def to_numpy(x) -> np.ndarray:
     return np.asarray(x, dtype=np.float64)
 
 
+def true_relres(A: CsrMatrix, x, b) -> float:
+    """Host-side f64 ||b - Ax|| / ||b||, independent of the device path.
+    For multi-RHS (2-D) solves, the worst column's."""
+    xh, bh = to_numpy(x), to_numpy(b)
+    if xh.ndim == 2:
+        return max(true_relres(A, xh[:, j], bh[:, j])
+                   for j in range(xh.shape[1]))
+    bn = float(np.linalg.norm(bh))
+    if bn == 0.0:
+        return 0.0
+    return float(np.linalg.norm(bh - A.matvec(xh))) / bn
+
+
 @dataclass
 class SolveResult:
     """One solve's outcome."""

@@ -23,7 +23,7 @@ loop stops instead.
 At fp64 the solver takes the JAX package's TPU branch on every device: it
 delegates to `bicgstab_ir` (f32 BiCGSTAB on the f32 SpMV + f64 residual
 refinement on the sliced-ELL f64 product), reported as `fp32_ir_auto`. At
-fp32 it runs `bicgstab_loop` on K1 or the sliced-ELL f32 kernel directly.
+fp32 it runs `bicgstab_loop` on the sliced-ELL f32 kernel directly.
 """
 
 from __future__ import annotations

@@ -5,11 +5,12 @@ order, same stop rule (`it < maxiter and rr > tol2`) — written as a Python
 loop. The stop test reads `rr` on the host, which synchronizes with the
 device once per iteration; capturing the loop body in a CUDA graph to
 remove that sync is a later step (ROADMAP). `build_matvec` gives the SpMV
-of each layout, after an optional RCM reordering: the uniform BSR kernel
-K1 (`ops/spmv_bsr.py`), the sliced-ELL kernels that replace K5 and K2 on
-the class-padded and f64 layouts (`ops/spmv_sell.py`), and the JAX
-package's XLA-only layouts as plain torch ops: `ell` (`ops/spmv.py`),
-`bsr_xla` (`BsrMatrix.matvec_xla`) and `dense`.
+of each layout, after an optional reordering: the sliced-ELL kernels that
+replace K1 and K5 (f32) and K2 (f64) on the solver paths
+(`ops/spmv_sell.py`), and the JAX package's XLA-only layouts as plain
+torch ops: `ell` (`ops/spmv.py`), `bsr_xla` (`BsrMatrix.matvec_xla`) and
+`dense`. The BSR kernels K1, K5 and K2 stay on the ops API
+(`ops/spmv_bsr.py`).
 """
 
 from __future__ import annotations
@@ -19,12 +20,11 @@ import time
 import numpy as np
 import torch
 
-from lsbench_tpu_torch.matrix.bsr import BsrMatrix, classed_layout_wins
+from lsbench_tpu_torch.matrix.bsr import BsrMatrix
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
 from lsbench_tpu_torch.matrix.ell import EllMatrix
 from lsbench_tpu_torch.matrix.sell import SellMatrix
 from lsbench_tpu_torch.ops.spmv import spmv_ell
-from lsbench_tpu_torch.ops.spmv_bsr import spmv_bsr
 from lsbench_tpu_torch.ops.spmv_sell import spmv_sell, spmv_sell_f64
 from lsbench_tpu_torch.ordering import get_ordering
 from lsbench_tpu_torch.solvers.base import SolveResult, Solver, register_solver
@@ -86,12 +86,14 @@ def build_matvec(A: CsrMatrix, layout: str, device, dtype=torch.float32):
     the SpMV. `dtype` is the operator's for "dense", "ell" and "bsr_xla";
     the kernel layouts fix their own.
 
-    The names are the JAX package's, so that the CLI, the record and its
-    layout gates stay comparable; on the card the class-padded and f64
-    layouts are sliced ELL:
-      "bsr"          uniform f32 BsrMatrix and K1, or, where
-                     `classed_layout_wins(A)`, the same as "bsr_classed";
-      "bsr_classed"  f32 SellMatrix and `spmv_sell` (the redesigned K5);
+    The names are the JAX package's, so that the CLI, the record and the
+    AMG layout model stay comparable; on the card the BSR layouts are
+    sliced ELL:
+      "bsr"          f32 SellMatrix and `spmv_sell` (the redesigned K1: the
+                     uniform 8×128 BSR; where the JAX package's
+                     `classed_layout_wins(A)` picks its class-padded layout
+                     instead, the port's product is the same);
+      "bsr_classed"  the same (the redesigned K5);
       "bsr_df64"     f64 SellMatrix and `spmv_sell_f64` (the redesigned K2).
     "dense" (small coarse AMG levels), "ell" and "bsr_xla" are the JAX
     package's XLA-only layouts: plain torch ops on the device, outside any
@@ -106,13 +108,7 @@ def build_matvec(A: CsrMatrix, layout: str, device, dtype=torch.float32):
         op = BsrMatrix.from_csr(A, dtype=as_dtype(dtype), device=device,
                                 with_sel=True)
         return BsrMatrix.matvec_xla, op
-    if layout == "bsr":
-        if classed_layout_wins(A):
-            layout = "bsr_classed"
-        else:
-            op = BsrMatrix.from_csr(A, dtype=torch.float32, device=device)
-            return spmv_bsr, op
-    if layout == "bsr_classed":
+    if layout in ("bsr", "bsr_classed"):
         return spmv_sell, SellMatrix.from_csr(A, dtypes=(torch.float32,),
                                               device=device)
     if layout == "bsr_df64":
@@ -135,8 +131,9 @@ def permutation(ordering: str, A: CsrMatrix, device):
 
 @register_solver("cg")
 class CgSolver(Solver):
-    """Jacobi-preconditioned CG with optional RCM reordering and a BSR
-    SpMV kernel. `_loop` is the Krylov iteration (BicgstabSolver swaps it)."""
+    """Jacobi-preconditioned CG with an optional reordering and the SpMV of
+    the chosen layout. `_loop` is the Krylov iteration (BicgstabSolver
+    swaps it)."""
 
     _loop = staticmethod(cg_loop)
 

@@ -1,9 +1,9 @@
 """Mixed-precision iterative refinement (counterpart of
 `lsbench_tpu/solvers/refine.py`): f64 accuracy at f32 iteration cost.
 
-Inner Krylov solve in f32 on the f32 SpMV of the chosen layout (K1 on a
-uniform BsrMatrix, or the sliced-ELL `spmv_sell` where the JAX package
-would take the class-padded layout); once per refinement pass, the f64
+Inner Krylov solve in f32 on the f32 SpMV of the chosen layout (the
+sliced-ELL `spmv_sell` where the JAX package takes its uniform or
+class-padded BSR, K1 or K5); once per refinement pass, the f64
 residual r = b − A·x on the sliced-ELL f64 product `spmv_sell_f64`, an
 exact native-FP64 matvec where the TPU ran the double-float BSR kernel K2.
 Each pass gains ~6 digits, so 2–4 passes reach the reference's direct-solve
@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
@@ -39,6 +40,59 @@ def f64_residual_matvec(Ap: CsrMatrix, op, device):
     else:
         op64 = SellMatrix.from_csr(Ap, dtypes=(torch.float64,), device=device)
     return lambda x: spmv_sell_f64(op64, x)
+
+
+def column_residual(mv, bp: torch.Tensor):
+    """residual(X, cols) = bp − A·X on the listed columns, (n, len(cols)):
+    one `mv` launch per column."""
+    def residual(X, cols):
+        return torch.stack([bp[:, j] - mv(X[:, j].contiguous())
+                            for j in cols], dim=1)
+    return residual
+
+
+def refine_columns(bp: torch.Tensor, correct, residual, rtol: float,
+                   max_refine: int, x: torch.Tensor | None = None,
+                   unit_f32: bool = True):
+    """Iterative refinement of x for A·x = bp, (n, k), with the stop rule
+    of the JAX package's (vmapped) while-loop per column: a column takes
+    another pass while passes < max_refine, rr > rtol²·‖b‖² and rr still
+    falls; a finished column keeps its iterate and is left out of later
+    residuals. `correct(r)` returns the correction for residual r;
+    `residual(X, cols)` returns bp − A·X on those columns. With `unit_f32`
+    each correction is computed in f32 on the residual scaled to unit norm
+    per column, while x and the residual stay in bp's dtype (f64). x is
+    the starting iterate (zero if None). Returns (x, passes per column,
+    rr, ‖b‖² per column)."""
+    k = bp.shape[1]
+    bb = torch.sum(bp * bp, dim=0)
+    tol2 = (rtol ** 2) * bb
+    if x is None:
+        x, r, rr = torch.zeros_like(bp), bp, bb
+    else:
+        r = residual(x, range(k))
+        rr = torch.sum(r * r, dim=0)
+    rr_prev = torch.full_like(rr, float("inf"))
+    passes = np.zeros(k, dtype=np.int64)
+    for _ in range(max_refine):
+        active = (rr > tol2) & (rr < rr_prev)
+        live = torch.nonzero(active).flatten().tolist()
+        if not live:
+            break
+        if unit_f32:
+            scale = torch.sqrt(rr)
+            safe = torch.where(scale > 0, scale, 1.0)
+            r32 = r.float() * (1.0 / safe).float()[None, :]
+            d = (correct(r32) * safe.float()[None, :]).to(bp.dtype)
+        else:
+            d = correct(r)
+        x = torch.where(active[None, :], x + d, x)
+        r = r.clone()
+        r[:, live] = residual(x, live)
+        rr_prev = torch.where(active, rr, rr_prev)
+        rr = torch.where(active, torch.sum(r * r, dim=0), rr)
+        passes[live] += 1
+    return x, passes, rr, bb
 
 
 class KrylovIrSolver(Solver):

@@ -2,7 +2,9 @@
 against the JAX package on the same matrices.
 
 - The host hierarchy (A, P, R, dinv, dinv_l1, rho per level, the coarse A)
-  is bit-identical, and so are the device layouts chosen per operator.
+  is bit-identical, and so are the device layouts chosen per operator
+  (where the JAX package lays an operator out as BSR, the port builds the
+  sliced ELL of the same CSR: the redesigned K1 and K5).
 - One cycle of each smoother, on the same hierarchy in f32, agrees to f32
   rounding.
 - Solvers: the port runs on the CPU with the kernels' plain versions; the
@@ -23,9 +25,9 @@ from lsbench_tpu.ordering.rcm import rcm_ordering as j_rcm
 from lsbench_tpu.solvers import amg as jamg
 from lsbench_tpu.solvers.base import get_solver as j_get_solver
 
-from lsbench_tpu_torch.matrix import bsr as tbsr
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
 from lsbench_tpu_torch.matrix.generate import poisson_3d, random_spd
+from lsbench_tpu_torch.matrix.sell import SellMatrix
 from lsbench_tpu_torch.ops.interp_well import WindowEll
 from lsbench_tpu_torch.ops.spgemm import drop_small, spgemm
 from lsbench_tpu_torch.solvers import amg as tamg
@@ -134,6 +136,9 @@ def test_matrix_hierarchy_is_bit_identical(case):
 
 def _layout_arrays(op):
     """The arrays of a device layout, numpy, in a fixed order."""
+    if isinstance(op, SellMatrix):
+        return [np.asarray(op.cols), np.asarray(op.slice_off),
+                np.asarray(op.vals)]
     if hasattr(op, "lcols"):
         return [np.asarray(op.vals), np.asarray(op.lcols), np.asarray(op.w0)]
     if hasattr(op, "oidx"):
@@ -164,18 +169,25 @@ def test_device_layouts_match_jax(case):
     JA = make()
     j_params, j_aps, j_L = jamg.build_hierarchy(
         JA, jamg.AmgOptions(**kw), jnp.float32, "bsr")
+    j_mats, _ = jamg.build_matrix_hierarchy(JA, jamg.AmgOptions(**kw))
     params, aps, L = tamg.build_hierarchy(
         _port(JA), tamg.AmgOptions(**kw), torch.float32, "bsr", CPU)
-    names = {"ArrayImpl": "Tensor"}
+    names = {"ArrayImpl": "Tensor", "BsrMatrix": "SellMatrix",
+             "BsrClassed": "SellMatrix"}
     kinds = set()
-    for lp, jlp in zip(params, j_params, strict=True):
+    for lp, jlp, jm in zip(params, j_params, j_mats, strict=True):
         for k in ("a", "p", "r"):
             jname = type(jlp[k]).__name__
             assert type(lp[k]).__name__ == names.get(jname, jname), (k, jname)
             kinds.add(type(lp[k]).__name__)
-            for mine, theirs in zip(_layout_arrays(lp[k]),
-                                    _layout_arrays(jlp[k]), strict=True):
-                np.testing.assert_array_equal(mine, theirs)
+            theirs = jlp[k]
+            if isinstance(lp[k], SellMatrix):
+                # The JAX BSR operator's CSR, laid out as the port's SELL.
+                theirs = SellMatrix.from_csr(_port(jm[k.upper()]),
+                                             device=CPU)
+            for mine, ref in zip(_layout_arrays(lp[k]),
+                                 _layout_arrays(theirs), strict=True):
+                np.testing.assert_array_equal(mine, ref)
         for k in ("inv_diag", "inv_l1"):
             np.testing.assert_array_equal(lp[k].numpy(), np.asarray(jlp[k]))
     np.testing.assert_array_equal(L.numpy(), np.asarray(j_L))
@@ -337,4 +349,4 @@ def test_window_ell_runs_in_the_cycle():
         A, tamg.AmgOptions(coarsening="classical", theta=0.25),
         torch.float32, "bsr", CPU)
     assert isinstance(params[0]["p"], WindowEll)
-    assert isinstance(params[0]["a"], tbsr.BsrMatrix)
+    assert isinstance(params[0]["a"], SellMatrix)

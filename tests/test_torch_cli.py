@@ -121,6 +121,41 @@ def test_nrhs_and_ginkgo_match_jax_cli(poisson_file, capsys, solver, nrhs,
     assert j_rec.get("nrhs", 1) == nrhs and j_rec["converged"] is True
 
 
+@pytest.mark.parametrize("extra,solver,precision", [
+    ([], "cholmod", "fp64(fp32_ir_auto)"),
+    (["--solver", "cusolver"], "cusolver", "fp64(fp32_ir_auto)"),
+    (["--solver", "cholmod", "--precision", "fp32_ir"], "cholmod",
+     "fp32_ir"),
+    (["--solver", "cholmod", "--nrhs", "2"], "cholmod", "fp64(fp32_ir_auto)"),
+    (["--solver", "cholesky_ir", "--nrhs", "2"], "cholesky_ir", "fp64"),
+    (["--solver", "sparse_cholesky", "--ordering", "amd"], "sparse_cholesky",
+     "fp64"),
+])
+def test_direct_solvers_match_jax_cli(poisson_file, capsys, extra, solver,
+                                      precision):
+    """No --solver runs the reference's default, cholmod; cusolver and
+    cholesky_ir run Cholesky; fp32_ir maps cholesky onto cholesky_ir (no
+    fp32_ir_auto delegation); --nrhs k passes for the Cholesky family. The
+    records carry the JAX CLI's solver, precision and nrhs."""
+    argv = ["--matrix", str(poisson_file), "--trials", "2", "--warmups", "1",
+            "--json", "--rtol", "1e-10", *extra]
+    rc, out, err = _run(main, argv + ["--platform", "cpu"], capsys)
+    assert rc == 0, err
+    rec = json.loads(out[2])
+    j_rc, j_out, _ = _run(j_main, argv, capsys)
+    j_rec = json.loads(j_out[2])
+    assert j_rc == 0
+    assert out[1].split(",")[4] == rec["solver"] == j_rec["solver"] == solver
+    assert rec["precision"] == precision
+    assert rec.get("nrhs", 1) == j_rec.get("nrhs", 1)
+    assert rec["converged"] is True and rec["true_relres"] <= 1e-10
+    assert ("fp32_ir_auto" in err) == ("fp32_ir_auto" in precision)
+    if solver != "sparse_cholesky":
+        assert rec["refine_passes"] >= 1
+    else:
+        assert rec["schedule"] == "host" and rec["fill_nnz"] > 1920
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("extra", [
     ["--solver", "bicgstab", "--precision", "fp32_ir"],
@@ -128,21 +163,25 @@ def test_nrhs_and_ginkgo_match_jax_cli(poisson_file, capsys, solver, nrhs,
     ["--solver", "block_cg", "--nrhs", "3", "--precision", "fp32_ir"],
     ["--solver", "batched_bicgstab", "--nrhs", "3"],
     ["--solver", "ginkgo", "--nrhs", "3", "--precision", "fp32_ir"],
+    [], ["--solver", "cusolver"], ["--solver", "cholmod", "--nrhs", "3"],
+    ["--solver", "sparse_cholesky", "--opt", "schedule=block"],
 ])
 def test_krylov_cli_on_card(poisson_file, capsys, extra):
-    """The BiCGSTAB and multi-RHS solver spellings through the CLI on the
-    card: each converges and launches kernels."""
+    """The BiCGSTAB, multi-RHS and direct solver spellings through the CLI
+    on the card: each converges and launches kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from lsbench_tpu_torch.ops.spmv_bsr import LAUNCHES, reset_launches
-    reset_launches()
+    from lsbench_tpu_torch.ops import spmv_bsr, spmv_sell
+    spmv_bsr.reset_launches()
+    spmv_sell.reset_launches()
     rc, out, err = _run(main, ["--matrix", str(poisson_file), "--ordering",
                                "rcm", "--trials", "1", "--warmups", "1",
                                "--json", *extra], capsys)
     assert rc == 0, err
     rec = json.loads(out[2])
     assert rec["converged"] is True and rec["device"] != "cpu"
-    assert sum(LAUNCHES.values()) > 0
+    assert (sum(spmv_bsr.LAUNCHES.values())
+            + sum(spmv_sell.LAUNCHES.values())) > 0
 
 
 def test_rejects_fp16(tiny_matrix_file, capsys):
@@ -157,8 +196,8 @@ def test_invalid_solver_warns_and_defaults(tiny_matrix_file, capsys):
                                "nope", "--trials", "1", "--platform", "cpu"],
                         capsys)
     assert rc == 0
-    assert "Invalid solver" in err and "Defaulting to cg" in err
-    assert out[0] == BenchRecord.CSV_HEADER and ",cg," in out[1]
+    assert "Invalid solver" in err and "Defaulting to cholmod" in err
+    assert out[0] == BenchRecord.CSV_HEADER and ",cholmod," in out[1]
 
 
 @pytest.mark.parametrize("content", [None, "abc def\n"])
@@ -176,7 +215,9 @@ def test_missing_or_malformed_file(tmp_path, capsys, content):
     ["--roofline"],
     ["--profile-dir", "prof"], ["--cache"], ["--cache-dir", "c"],
     ["--coordinator", "localhost:1234"], ["--debug-nans"],
-    ["--ordering", "amd"], ["--ordering", "metis"], ["--precond", "ic0"],
+    ["--solver", "cg", "--precond", "block_jacobi"],
+    ["--solver", "sparse_cholesky", "--opt", "schedule=level"],
+    ["--solver", "cg", "--precond", "ic0"],
     ["--platform", "tpu"],
 ])
 def test_unported_flags_exit_1(tiny_matrix_file, capsys, flags):
@@ -190,13 +231,17 @@ def test_unported_flags_exit_1(tiny_matrix_file, capsys, flags):
             or "--nrhs > 1 is implemented for" in err)
 
 
-def test_invalid_ordering_defaults_to_amd_which_is_refused(tiny_matrix_file,
-                                                           capsys):
-    rc, out, err = _run(main, ["--matrix", str(tiny_matrix_file),
-                               "--ordering", "zzz", "--platform", "cpu"],
-                        capsys)
-    assert rc == 1 and not out
-    assert "Defaulting to AMD" in err and "not yet ported" in err
+def test_invalid_ordering_defaults_to_amd(tiny_matrix_file, capsys):
+    """An invalid ordering warns and defaults to AMD (lsbench.c:47-49),
+    which then runs, as in the JAX CLI."""
+    argv = ["--matrix", str(tiny_matrix_file), "--ordering", "zzz",
+            "--trials", "1"]
+    rc, out, err = _run(main, argv + ["--platform", "cpu"], capsys)
+    j_rc, j_out, _ = _run(j_main, argv, capsys)
+    assert rc == j_rc == 0
+    assert "Defaulting to AMD" in err and "not yet ported" not in err
+    assert out[1].split(",")[4:6] == j_out[1].split(",")[4:6] \
+        == ["cholmod", "amd"]
 
 
 def test_cuda_platform_without_cuda_exits_1(tiny_matrix_file, capsys,

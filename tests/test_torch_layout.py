@@ -11,6 +11,7 @@ from lsbench_tpu.matrix.generate import random_spd as j_random_spd
 from lsbench_tpu.matrix.generate import sem_2d as j_sem_2d
 from lsbench_tpu.matrix.io import read_matrix as j_read_matrix
 from lsbench_tpu.matrix.io import write_matrix as j_write_matrix
+from lsbench_tpu.ordering import get_ordering as j_get_ordering
 from lsbench_tpu.ordering.rcm import rcm_ordering as j_rcm
 
 from lsbench_tpu_torch.matrix import bsr as tbsr
@@ -64,9 +65,14 @@ def test_generators_and_rcm_match_jax(make, jmake):
 
 
 @pytest.mark.parametrize("name", ["amd", "metis", "nd"])
-def test_unported_orderings_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_ordering(name, poisson_2d(4))
+def test_orderings_match_jax(name):
+    """`get_ordering` gives the JAX package's permutation
+    (tests/test_torch_ordering.py holds them on more matrices); an unknown
+    name raises."""
+    np.testing.assert_array_equal(get_ordering(name, poisson_2d(9)),
+                                  j_get_ordering(name, j_poisson_2d(9)))
+    with pytest.raises(KeyError, match="unknown ordering"):
+        get_ordering(name + "_x", poisson_2d(4))
 
 
 MATRICES = [lambda: j_poisson_2d(17), lambda: j_random_spd(300, 9),

@@ -1,7 +1,7 @@
-"""The port's native host code is its own: `native/reader.cpp` and
-`native/spgemm.cpp` live in `lsbench_tpu_torch/native/` and build from
-there, and no code of the port reads, builds or imports anything of the JAX
-package."""
+"""The port's native host code is its own: `native/reader.cpp`,
+`native/spgemm.cpp`, `native/mindeg.cpp` and `native/spchol.cpp` live in
+`lsbench_tpu_torch/native/` and build from there, and no code of the port
+reads, builds or imports anything of the JAX package."""
 
 import ast
 import os
@@ -17,7 +17,7 @@ PKG = os.path.dirname(os.path.abspath(lsbench_tpu_torch.__file__))
 
 def test_native_sources_are_the_ports_own():
     assert os.path.commonpath([native.SRC_DIR, PKG]) == PKG
-    for src in ("reader.cpp", "spgemm.cpp"):
+    for src in ("reader.cpp", "spgemm.cpp", "mindeg.cpp", "spchol.cpp"):
         assert os.path.isfile(os.path.join(native.SRC_DIR, src))
 
 
@@ -43,6 +43,34 @@ def test_native_libraries_build_from_the_port(tmp_path, monkeypatch):
     np.testing.assert_allclose(C, A.to_dense() @ A.to_dense())
     built = sorted(os.listdir(tmp_path / "build"))
     assert built == ["libreader.so", "libspgemm.so"]
+
+
+def test_direct_solver_libraries_build_from_the_port(tmp_path, monkeypatch):
+    """The minimum-degree and sparse-Cholesky libraries build from the
+    port's sources into a fresh build directory; their results are the
+    Python paths' (exact minimum degree) and a factor that solves A."""
+    from lsbench_tpu_torch.native import mindeg, spchol
+    from lsbench_tpu_torch.ordering.amd import min_degree_graph
+    from lsbench_tpu_torch.ordering.rcm import _symmetrized_graph
+    from lsbench_tpu_torch.solvers import sparse_cholesky as sc
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(mindeg, "_lib", None)
+    monkeypatch.setattr(spchol, "_lib", None)
+    A = poisson_2d(9)
+    offs, cols = _symmetrized_graph(A)
+    np.testing.assert_array_equal(mindeg.min_degree(offs, cols, A.nrows),
+                                  min_degree_graph(offs, cols, A.nrows))
+    perm = mindeg.amd_approx(offs, cols, A.nrows)
+    assert np.array_equal(np.sort(perm), np.arange(A.nrows))
+    As = sc.symmetrize(A.permuted(perm))
+    cp, ci, cx = sc.numeric_factor(As, *sc.symbolic_rows(
+        As, sc.elimination_tree(As)))
+    b = np.arange(A.nrows, dtype=np.float64)
+    x = spchol.tri_solve(cp, ci, cx, b)
+    assert np.linalg.norm(As.matvec(x) - b) <= 1e-12 * np.linalg.norm(b)
+    assert spchol.available()
+    assert sorted(os.listdir(tmp_path / "build")) == ["libmindeg.so",
+                                                     "libspchol.so"]
 
 
 def _code_strings(tree):

@@ -24,7 +24,7 @@ from lsbench_tpu.ops import spmv_pallas as jops
 from lsbench_tpu.ordering.rcm import rcm_ordering as j_rcm
 from lsbench_tpu.solvers.base import get_solver as j_get_solver
 
-from lsbench_tpu_torch.matrix.bsr import BsrMatrix
+from lsbench_tpu_torch.matrix.bsr import classed_layout_wins
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
 from lsbench_tpu_torch.matrix.sell import SLICE, SellMatrix
 from lsbench_tpu_torch.ops import spmv_sell as ops
@@ -211,9 +211,9 @@ def test_input_checks_and_no_fallback():
 
 
 def test_solver_routes_take_sell():
-    """`build_matvec` gives the SELL products for "bsr_classed" and
-    "bsr_df64" (uniform "bsr" keeps K1); every refinement residual is the
-    SELL f64 product, sharing a SELL inner operator's structure."""
+    """`build_matvec` gives the SELL products for "bsr" (the redesigned K1),
+    "bsr_classed" and "bsr_df64"; every refinement residual is the SELL
+    f64 product, sharing a SELL inner operator's structure."""
     A = _port_csr(_rcm(j_poisson_2d(12)))
     mv, op = build_matvec(A, "bsr_classed", CPU)
     assert mv is ops.spmv_sell and isinstance(op, SellMatrix)
@@ -221,7 +221,8 @@ def test_solver_routes_take_sell():
     mv64, op64 = build_matvec(A, "bsr_df64", CPU)
     assert mv64 is ops.spmv_sell_f64 and op64.vals is None
     mv1, op1 = build_matvec(A, "bsr", CPU)
-    assert isinstance(op1, BsrMatrix)
+    assert mv1 is ops.spmv_sell and isinstance(op1, SellMatrix)
+    assert torch.equal(op1.cols, op.cols) and torch.equal(op1.vals, op.vals)
     x = torch.as_tensor(_x(A.ncols, 6))
     yref = A.matvec(x.numpy())
     for inner in (op, op1):
@@ -274,6 +275,57 @@ def test_cg_ir_sell_inner_matches_jax(name):
     _check_parity(JA, b, port, jax_res)
 
 
+@pytest.mark.parametrize("name", sorted(SOLVES))
+def test_cg_ir_uniform_bsr_route_matches_jax(name):
+    """cg_ir with the uniform layout name "bsr" (the JAX package's K1 on
+    operators where `classed_layout_wins` is false): the port runs it on
+    `spmv_sell`, with the residual on `spmv_sell_f64` sharing its
+    structure, and matches the JAX solve as the classed route does."""
+    JA = SOLVES[name]()
+    A, b = _port_csr(JA), make_rhs(JA.nrows)
+    assert not classed_layout_wins(_port_csr(_rcm(JA)))
+    kw = dict(layout="bsr", ordering="rcm", rtol=1e-12)
+    solver, port = _solve(get_solver, "cg_ir", A, b, device="cpu", **kw)
+    _, jax_res = _solve(j_get_solver, "cg_ir", JA, b, **kw)
+    assert isinstance(solver._op, SellMatrix) and solver._op.vals64 is None
+    assert port.extra["refine_passes"] >= 2
+    _check_parity(JA, b, port, jax_res)
+
+
+def _transfer_operators():
+    """(label, CsrMatrix) of every rectangular P (n×nc) and R (nc×n) of a
+    real classical hierarchy of poisson_2d(32)."""
+    from lsbench_tpu_torch.solvers import amg as tamg
+    A = _port_csr(j_poisson_2d(32))
+    mats, _ = tamg.build_matrix_hierarchy(
+        A, tamg.AmgOptions(coarsening="classical", theta=0.25))
+    return [(f"level {l} {k}", m[k]) for l, m in enumerate(mats)
+            for k in ("P", "R")]
+
+
+def test_spmv_sell_on_rectangular_amg_transfers():
+    """`spmv_sell` and `spmv_sell_f64` take x of length ncols: on each
+    rectangular transfer operator of an AMG hierarchy they match the host
+    f64 product, and the padding reads only columns below ncols."""
+    ops_ = _transfer_operators()
+    assert any(M.nrows < M.ncols for _, M in ops_)
+    assert any(M.nrows > M.ncols for _, M in ops_)
+    for label, M in ops_:
+        S = SellMatrix.from_csr(M, dtypes=BOTH, device=CPU)
+        assert (S.nrows, S.ncols) == M.shape
+        assert 0 <= int(S.cols.min()) and int(S.cols.max()) < M.ncols
+        x = _x(M.ncols, 9)
+        yref = M.matvec(x)
+        y32 = ops.spmv_sell(S, torch.as_tensor(x, dtype=torch.float32))
+        y64 = ops.spmv_sell_f64(S, torch.as_tensor(x))
+        assert y32.shape == y64.shape == (M.nrows,)
+        scale = np.abs(yref).max()
+        assert np.abs(y32.numpy() - yref).max() <= 1e-5 * scale, label
+        assert np.abs(y64.numpy() - yref).max() <= 1e-13 * scale, label
+        with pytest.raises(ValueError, match="shape"):
+            ops.spmv_sell_f64(S, torch.zeros(M.nrows, dtype=torch.float64))
+
+
 # ------------------------------------------------------------ on the card
 
 @pytest.fixture
@@ -303,6 +355,20 @@ def test_sell_kernels_match_plain_on_card(name, cuda_device):
         assert float((y - y_plain).abs().max()) <= rtol * scale
     assert ops.LAUNCHES["sell_f32"] == before["sell_f32"] + 2
     assert ops.LAUNCHES["sell_f64"] == before["sell_f64"] + 2
+
+
+@pytest.mark.cuda
+def test_sell_kernels_on_rectangular_transfers_on_card(cuda_device):
+    for label, M in _transfer_operators():
+        S = SellMatrix.from_csr(M, dtypes=BOTH, device=cuda_device)
+        x64 = torch.as_tensor(_x(M.ncols, 10), device=cuda_device)
+        for kern, plain, x, rtol in (
+                (ops.spmv_sell, ops.spmv_sell_plain, x64.float(), 1e-5),
+                (ops.spmv_sell_f64, ops.spmv_sell_f64_plain, x64, 1e-13)):
+            y, y_plain = kern(S, x), plain(S, x)
+            assert y.shape == (M.nrows,)
+            scale = float(y_plain.abs().max())
+            assert float((y - y_plain).abs().max()) <= rtol * scale, label
 
 
 @pytest.mark.cuda

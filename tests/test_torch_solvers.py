@@ -13,7 +13,6 @@ from lsbench_tpu.matrix.generate import random_spd as j_random_spd
 from lsbench_tpu.matrix.generate import sem_2d as j_sem_2d
 from lsbench_tpu.solvers.base import get_solver as j_get_solver
 
-from lsbench_tpu_torch.matrix.bsr import BsrMatrix
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
 from lsbench_tpu_torch.matrix.sell import SellMatrix
 from lsbench_tpu_torch.solvers import get_solver
@@ -63,9 +62,8 @@ def test_cg_ir_matches_jax(name, layout):
     kw = dict(layout=layout, ordering="rcm", rtol=1e-12)
     solver, port = _solve(get_solver, "cg_ir", A, b, device="cpu", **kw)
     _, jax_res = _solve(j_get_solver, "cg_ir", JA, b, **kw)
-    # The class-padded layout runs as sliced ELL in the port.
-    assert isinstance(solver._op,
-                      SellMatrix if layout == "bsr_classed" else BsrMatrix)
+    # The uniform and the class-padded layouts run as sliced ELL in the port.
+    assert isinstance(solver._op, SellMatrix)
     assert port.x.device.type == "cpu" and port.x.dtype == torch.float64
     assert port.extra["refine_passes"] >= 2
     _check_parity(JA, b, port, jax_res)
@@ -107,7 +105,7 @@ def test_unported_options_raise():
     from lsbench_tpu_torch.matrix.generate import poisson_2d
     A = poisson_2d(6)
     cls, _ = get_solver("cg")
-    for kw in (dict(precond="ic0"), dict(ordering="amd")):
+    for kw in (dict(precond="ic0"), dict(precond="block_jacobi")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cls(A, device="cpu", **kw)
     with pytest.raises(ValueError, match="unknown layout"):
