@@ -5,9 +5,9 @@
 
 Phases, each of which raises (exit code 1) on failure:
 
-1. Print the card's name and power limit (nvidia-smi), build the kernels
-   from `lsbench_tpu_torch/csrc/*.cu` (one nvcc per source, all started
-   together) and print the build time.
+1. Print the card's name, power limit and driver version (nvidia-smi),
+   build the kernels from `lsbench_tpu_torch/csrc/*.cu` (one nvcc per
+   source, all started together) and print the build time.
 2. Kernels: on the main path's layouts (RCM-ordered poisson_2d(512),
    n=262,144, class-padded and uniform; RCM-ordered random_spd(6408, 23),
    uniform) compare each kernel with its plain PyTorch version on the same
@@ -25,7 +25,9 @@ Phases, each of which raises (exit code 1) on failure:
    plain version (within 1e-5·max|y|) and with the host f64 CSR matvec
    (within 2e-5·max|y|) on every operator laid out as window-ELL, with the
    median CUDA-event times of the wrapper and the plain version, and the
-   device time of the kernel alone over back-to-back launches; likewise
+   device time of the kernel alone over back-to-back launches, each beside
+   the SELL f32 kernel's wrapper and kernel-alone times on the same
+   operator and x; likewise
    the SELL f32 kernel (the redesigned K1) on every operator laid out as
    SELL, rectangular transfers included, with its times, bound and
    cuSPARSE's on the level-1 A.
@@ -39,15 +41,22 @@ Phases, each of which raises (exit code 1) on failure:
    and below 1. Then the same
    solve of poisson_2d(128) on the card and with `--platform cpu` (the
    plain versions): the two true relres agree to 1e-3 relative.
-7. Multi-RHS kernel (K3, in phase 2): `spmm_bsr` on the uniform layouts of
-   RCM poisson_2d(512) and random_spd(6408, 23) for k in {1, 3, 8, 16},
-   each column within 1e-5·max|Y_j| of the plain version and 2e-5·max|Y_j|
-   of the host f64 CSR product, with median CUDA-event times and GB/s.
+7. Multi-RHS kernels (in phase 2): the SELL SpMM `spmm_sell` (the
+   redesigned K3, the solver paths' SpMM) on the RCM SELL layouts and the
+   BSR `spmm_bsr` (K3's port, ops API) on the uniform layouts of RCM
+   poisson_2d(512) and random_spd(6408, 23) for k in {1, 3, 8, 16}, each
+   column within 1e-5·max|Y_j| of the plain version and 2e-5·max|Y_j| of
+   the host f64 CSR product; the SELL SpMM also bitwise repeatable and
+   each column bit for bit `spmv_sell` on that column. Times: the
+   wrapper's median CUDA-event time, its host time per call, the kernel
+   alone, the profiler's device time L2-warm and L2-cold, the function's
+   bound, the layout's bound and cuSPARSE's SpMM.
 8. Multi-RHS paths through the CLI: `--solver cg --nrhs 8` (block CG, rtol
-   1e-10, RCM) on both matrices, `--solver ginkgo --nrhs 8` (batched
-   BiCGSTAB) on poisson_2d(512), one-RHS `--solver ginkgo` (bicgstab_ir,
-   `fp64(fp32_ir_auto)`, SELL f32 and f64) on random_spd(6408, 23), each
-   through its kernels;
+   1e-10, RCM) on both matrices and `--solver ginkgo --nrhs 8` (batched
+   BiCGSTAB) on poisson_2d(512), each through the SELL SpMM and the SELL
+   f64 kernel with no BSR SpMM launch, one-RHS `--solver ginkgo`
+   (bicgstab_ir, `fp64(fp32_ir_auto)`, SELL f32 and f64) on
+   random_spd(6408, 23);
    then `--solver cg --nrhs 4` on poisson_2d(128) on the card and with
    `--platform cpu`: both reach 1e-10 within max(3, 10%) block iterations
    of each other, and the CPU run launches nothing.
@@ -69,9 +78,10 @@ Phases, each of which raises (exit code 1) on failure:
    f64 CSR matvec, bitwise repeatable, with the wrapper's median
    CUDA-event time, the kernel alone over back-to-back launches, bytes,
    bound and cuSPARSE's time (random_spd's row is K1's operator). Since
-   no solver path runs the BSR K1, K5 and K2, phase 2 also drives their
-   public entries once (the "bsr K1/classed/df64 API" path), each result
-   within 5e-13·max|y| (K2) or 2e-5·max|y| (K1, K5) of the host f64 matvec.
+   no solver path runs the BSR K1, K5, K2 and K3, phase 2 also drives
+   their public entries once (the "bsr K1/classed/df64/mm API" path), each
+   result within 5e-13·max|y| (K2) or 2e-5·max|y| (K1, K5, K3 per column)
+   of the host f64 product.
 12. Direct solvers through the CLI, each to true relres ≤ 1e-10: no
    `--solver` (the reference's default, `cholmod`) and `--solver cusolver`
    on random_spd(6408, 23) (`fp64(fp32_ir_auto)`, through the SELL f64
@@ -122,6 +132,7 @@ BSR_SOURCE = "lsbench_tpu_torch/csrc/bsr_spmv.cu"
 WELL_SOURCE = "lsbench_tpu_torch/csrc/well_spmv.cu"
 VARIANTS_SOURCE = "lsbench_tpu_torch/csrc/bsr_variants.cu"
 SELL_SOURCE = "lsbench_tpu_torch/csrc/sell_spmv.cu"
+SELL_SPMM_SOURCE = "lsbench_tpu_torch/csrc/sell_spmm.cu"
 # Kernel name → (launch counter, source, TPU kernel it replaces).
 KERNELS = {
     "spmv_bsr_f32": ("bsr_f32", BSR_SOURCE,
@@ -145,6 +156,9 @@ KERNELS = {
                       "lsbench_tpu/ops/spmv_pallas.py:187"),
     "spmv_sell_f64": ("sell_f64", SELL_SOURCE,
                       "lsbench_tpu/ops/spmv_pallas.py:396"),
+    # The redesign of K3 for the multi-RHS solver paths.
+    "spmm_sell_f32": ("sell_mm_f32", SELL_SPMM_SOURCE,
+                      "lsbench_tpu/ops/spmv_pallas.py:255"),
 }
 # The main-path runs whose launch counts the record lists, in order.
 PATHS = ("cg_ir poisson_2d(512) + random_spd(6408,23)",
@@ -155,7 +169,7 @@ PATHS = ("cg_ir poisson_2d(512) + random_spd(6408,23)",
          "spmv variants API poisson_2d(512) + random_spd(6408,23)",
          "cg_ir --opt layout=ell poisson_2d(512)",
          "cg --opt layout=bsr_xla random_spd(6408,23)",
-         "bsr K1/classed/df64 API poisson_2d(512) + random_spd(6408,23)",
+         "bsr K1/classed/df64/mm API poisson_2d(512) + random_spd(6408,23)",
          "cholmod (no --solver) random_spd(6408,23)",
          "cusolver random_spd(6408,23)",
          "cholmod --ordering amd poisson_2d(512)",
@@ -182,10 +196,9 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def card_line() -> str:
+def card_line(fields: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip()
 
@@ -374,25 +387,31 @@ def kernel_phase(matrices) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     results.update(sell_cases({"poisson_2d(512)": P,
                                "random_spd(6408,23)": R}, rng))
+    results["spmm_sell_f32"] = sell_spmm_cases(
+        {"poisson_2d(512)": P, "random_spd(6408,23)": R}, rng)
     return results, api_counts
 
 
 def bsr_api_path(P, R, p_cls, p_64, r_uni, r_lo) -> dict:
-    """The BSR K1, K5 and K2, which no solver path runs since the
+    """The BSR K1, K5, K2 and K3, which no solver path runs since the
     sliced-ELL kernels took their place: each public entry once (uniform K1
     on RCM random_spd(6408, 23), classed on RCM poisson_2d(512), df64 on
-    it, df64_lo on random_spd), counters set to 0 just before and read just
-    after, each result held to the host f64 matvec. Returns the counts."""
+    it, df64_lo on random_spd, the k=8 SpMM on random_spd), counters set to
+    0 just before and read just after, each result held to the host f64
+    product (per column for the SpMM). Returns the counts."""
+    import scipy.sparse as sp
     import torch
 
     from lsbench_tpu_torch.ops import spmv_bsr as ops
     rng = np.random.default_rng(3)
     xp, xr = rng.standard_normal(P.ncols), rng.standard_normal(R.ncols)
+    Xr = rng.standard_normal((R.ncols, 8))
     dev = p_64.blocks_hi.device
     x32 = torch.as_tensor(xp, dtype=torch.float32, device=dev)
     xp64 = torch.as_tensor(xp, device=dev)
     xr64 = torch.as_tensor(xr, device=dev)
     xr32 = torch.as_tensor(xr, dtype=torch.float32, device=dev)
+    Xr32 = torch.as_tensor(Xr, dtype=torch.float32, device=dev)
     reset_counts()
     out = {"spmv_bsr [random_spd(6408,23)]": (
                R, xr, ops.spmv_bsr(r_uni, xr32), 2e-5),
@@ -401,20 +420,25 @@ def bsr_api_path(P, R, p_cls, p_64, r_uni, r_lo) -> dict:
            "spmv_bsr_df64 [poisson_2d(512)]": (
                P, xp, ops.spmv_bsr_df64(p_64, xp64), 5e-13),
            "spmv_bsr_df64_lo [random_spd(6408,23)]": (
-               R, xr, ops.spmv_bsr_df64_lo(r_uni, r_lo, xr64), 5e-13)}
+               R, xr, ops.spmv_bsr_df64_lo(r_uni, r_lo, xr64), 5e-13),
+           "spmm_bsr k=8 [random_spd(6408,23)]": (
+               R, Xr, ops.spmm_bsr(r_uni, Xr32), 2e-5)}
     torch.cuda.synchronize()
     counts = read_counts()
     check(counts["bsr_f32"] == 1
           and counts["bsr_classed_f32"] == len(p_cls.blocks)
-          and counts["bsr_f64acc"] == 2, f"bsr API path launches {counts}")
+          and counts["bsr_f64acc"] == 2 and counts["bsr_mm_f32"] == 1,
+          f"bsr API path launches {counts}")
     for label, (A, x_np, y, rel) in out.items():
-        y_host = A.matvec(x_np)
-        err = float(np.abs(y.double().cpu().numpy() - y_host).max())
-        tol = rel * float(np.abs(y_host).max())
-        check(y.shape == (A.nrows,) and err <= tol,
-              f"{label}: max|kernel - host f64| = {err:.3e} > {tol:.3e}")
-        print(f"bsr API {label}: host_err={err:.3e} (tol {tol:.3e})")
-    print(f"bsr K1/classed/df64 API path: launches={counts}")
+        host = sp.csr_matrix((A.vals, A.cols, A.offs), shape=A.shape)
+        y_host = host @ x_np
+        err = np.abs(y.double().cpu().numpy() - y_host).max(axis=0)
+        tol = rel * np.abs(y_host).max(axis=0)
+        check(y.shape == y_host.shape and bool(np.all(err <= tol)),
+              f"{label}: max|kernel - host f64| = {err} > {tol}")
+        print(f"bsr API {label}: host_err={np.max(err):.3e} (tol "
+              f"{np.min(tol):.3e})")
+    print(f"bsr K1/classed/df64/mm API path: launches={counts}")
     return counts
 
 
@@ -482,6 +506,10 @@ def profiled_kernel_ms(fn, args, kernel: str, flush=None,
     return statistics.median(durs) / 1e3 if durs else None
 
 
+def _fmt(v: float | None) -> str:
+    return "n/a" if v is None else f"{v:.4f}"
+
+
 def sell_cases(matrices, rng) -> dict:
     """The sliced-ELL kernels (the redesigned K5 and K2) against their plain
     versions, the host f64 matvec and cuSPARSE on the RCM SELL layout of
@@ -547,12 +575,11 @@ def sell_cases(matrices, rng) -> dict:
                       + vb * (A.ncols + A.nrows))
             b_ms, b_by = function_bound(A, vb, "f64" if f64 else "f32")
             lib_ms = library_ms(A, dtype, x)
-            fmt = lambda v: "n/a" if v is None else f"{v:.4f}"  # noqa: E731
             print(f"kernel {tag}: max_abs_err={err:.3e} (tol {tol:.3e}) "
                   f"host_err={host_err:.3e} wrapper {ms:.4f} ms (host "
                   f"{host_ms:.4f} ms per call), kernel "
                   f"alone {alone:.4f} ms, device (profiler) L2-warm "
-                  f"{fmt(warm)} ms, L2-cold {fmt(cold)} ms, plain "
+                  f"{_fmt(warm)} ms, L2-cold {_fmt(cold)} ms, plain "
                   f"{plain_ms:.4f} ms; {nbytes} B: {nbytes / ms / 1e6:.1f} "
                   f"GB/s by the wrapper, {nbytes / alone / 1e6:.1f} GB/s "
                   f"alone")
@@ -577,10 +604,91 @@ def sell_cases(matrices, rng) -> dict:
     return results
 
 
+def sell_spmm_cases(matrices, rng) -> dict:
+    """The SELL SpMM (the redesigned K3) against its plain version and the
+    host f64 CSR product, column by column, and against the f32 SELL SpMV
+    on each column (bit for bit), for k in {1, 3, 8, 16} on the RCM SELL
+    layout of each matrix, with its times, bounds and cuSPARSE's SpMM;
+    returns the record entry with k=8 on poisson_2d(512)."""
+    import scipy.sparse as sp
+    import torch
+
+    from lsbench_tpu_torch.matrix.sell import SellMatrix
+    from lsbench_tpu_torch.ops import _cuda
+    from lsbench_tpu_torch.ops import spmv_sell as ops
+
+    dev = torch.device("cuda")
+    entry_fn = _cuda.library("sell_spmm").lsb_spmm_sell_f32
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB
+    result = {"max_abs_err": 0.0}
+    for label, A in matrices.items():
+        S = SellMatrix.from_csr(A, device=dev)
+        host = sp.csr_matrix((A.vals, A.cols, A.offs), shape=A.shape)
+        for k in (1, 3, 8, 16):
+            X_np = rng.standard_normal((A.ncols, k))
+            X = torch.as_tensor(X_np, dtype=torch.float32, device=dev)
+            Y_k, Y_again = ops.spmm_sell(S, X), ops.spmm_sell(S, X)
+            Y_p = ops.spmm_sell_plain(S, X)
+            cols_equal = all(torch.equal(Y_k[:, j], ops.spmv_sell(
+                S, X[:, j].contiguous())) for j in range(k))
+            torch.cuda.synchronize()
+            tag = f"spmm_sell_f32 [{label} RCM sell, k={k}]"
+            check(Y_k.shape == (A.nrows, k)
+                  and bool(torch.isfinite(Y_k).all()), f"{tag}: bad output")
+            check(torch.equal(Y_k, Y_again), f"{tag}: not bitwise repeatable")
+            check(cols_equal, f"{tag}: a column differs from spmv_sell's")
+            err = (Y_k - Y_p).abs().amax(dim=0).cpu().numpy()
+            tol = 1e-5 * Y_p.abs().amax(dim=0).cpu().numpy()
+            check(bool(np.all(err <= tol)), f"{tag}: max|kernel - plain| "
+                  f"per column {err} > {tol}")
+            Y_host = host @ X_np
+            host_err = np.abs(Y_k.double().cpu().numpy() - Y_host).max(axis=0)
+            host_tol = 2e-5 * np.abs(Y_host).max(axis=0)
+            check(bool(np.all(host_err <= host_tol)), f"{tag}: max|kernel - "
+                  f"host f64| per column {host_err} > {host_tol}")
+            ms = median_ms(lambda: ops.spmm_sell(S, X))
+            plain_ms = median_ms(lambda: ops.spmm_sell_plain(S, X))
+            host_ms = host_call_ms(lambda: ops.spmm_sell(S, X))
+            Y = torch.empty(A.nrows, k, dtype=torch.float32, device=dev)
+            args = (S.vals.data_ptr(), S.cols.data_ptr(),
+                    S.slice_off.data_ptr(), X.data_ptr(), Y.data_ptr(),
+                    A.nrows, k, torch.cuda.current_stream().cuda_stream)
+            alone = kernel_alone_ms(entry_fn, args)
+            warm = profiled_kernel_ms(entry_fn, args, "spmm_sell_f32_kernel")
+            cold = profiled_kernel_ms(entry_fn, args, "spmm_sell_f32_kernel",
+                                      flush)
+            nbytes = (8 * S.n_stored + 8 * S.slice_off.numel()
+                      + 4 * k * (A.ncols + A.nrows))
+            b_ms, b_by = function_bound(A, 4, "f32", k)
+            lib_ms = library_ms(A, torch.float32, X)
+            print(f"kernel {tag}: max_abs_err={err.max():.3e} (tol "
+                  f"{tol.min():.3e}..{tol.max():.3e}) host_err="
+                  f"{host_err.max():.3e} wrapper {ms:.4f} ms (host "
+                  f"{host_ms:.4f} ms per call), kernel alone {alone:.4f} ms, "
+                  f"device (profiler) L2-warm {_fmt(warm)} ms, L2-cold "
+                  f"{_fmt(cold)} ms, plain {plain_ms:.4f} ms; {nbytes} B: "
+                  f"{nbytes / alone / 1e6:.1f} GB/s alone")
+            print(f"  bound {b_ms:.4f} ms ({b_by}), layout bound "
+                  f"{layout_bound_ms(nbytes):.4f} ms ({nbytes} B), cuSPARSE "
+                  f"SpMM {lib_ms:.4f} ms")
+            result["max_abs_err"] = max(result["max_abs_err"],
+                                        float(err.max()))
+            if k == 8 and label == "poisson_2d(512)":
+                result.update(ms=ms, plain_ms=plain_ms, launch_ms=alone,
+                              wrapper_host_ms=host_ms, device_ms_l2_warm=warm,
+                              device_ms_l2_cold=cold,
+                              shape=f"{label} RCM sell, k=8", bound_ms=b_ms,
+                              bound_by=b_by, library_ms=lib_ms)
+        del S
+    del flush
+    torch.cuda.empty_cache()
+    return result
+
+
 def spmm_cases(layouts, rng) -> dict:
-    """K3 against its plain version and the host f64 CSR product, column by
-    column, for k in {1, 3, 8, 16} on each uniform layout; returns the
-    record entry with k=8 on poisson_2d(512)."""
+    """K3's BSR port (ops API) against its plain version and the host f64
+    CSR product, column by column, for k in {1, 3, 8, 16} on each uniform
+    layout; returns the record entry with k=8 on poisson_2d(512)."""
     import scipy.sparse as sp
     import torch
 
@@ -719,19 +827,20 @@ def _op_summary(op) -> str:
     return f"{kind}{extra} {op.bytes_streamed} B"
 
 
-def well_launch_ms(op, x) -> float:
-    """Time of one K4 launch alone (no x-table fill, no wrapper checks):
-    `kernel_alone_ms` of its entry point."""
+def well_launch_ms(op, x) -> tuple[float, float | None]:
+    """One K4 launch alone (no wrapper checks, no allocation, x read in
+    place): `kernel_alone_ms` of its entry point and the profiler's
+    L2-warm device time."""
     import torch
 
-    from lsbench_tpu_torch.ops import _cuda, interp_well
-    lib = _cuda.library("well_spmv")
-    xt = interp_well._x_table(op, x)
-    y = torch.empty(op.n_pad, dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream().cuda_stream
-    return kernel_alone_ms(lib.lsb_spmv_well_f32, (
-        op.vals.data_ptr(), op.lcols.data_ptr(), op.w0.data_ptr(),
-        xt.data_ptr(), y.data_ptr(), op.n_pad, op.k_real, stream))
+    from lsbench_tpu_torch.ops import _cuda
+    fn = _cuda.library("well_spmv").lsb_spmv_well_f32
+    y = torch.empty(op.nrows, dtype=torch.float32, device=x.device)
+    args = (op.vals.data_ptr(), op.lcols.data_ptr(), op.w0.data_ptr(),
+            x.data_ptr(), y.data_ptr(), op.nrows, op.n_pad, op.k_eff,
+            torch.cuda.current_stream().cuda_stream)
+    return (kernel_alone_ms(fn, args),
+            profiled_kernel_ms(fn, args, "spmv_well_f32_kernel"))
 
 
 def sell_operator_times(M, S, x) -> dict:
@@ -749,9 +858,11 @@ def sell_operator_times(M, S, x) -> dict:
     nbytes = 8 * S.n_stored + 8 * S.slice_off.numel() + 4 * (M.ncols
                                                               + M.nrows)
     b_ms, b_by = function_bound(M, 4, "f32")
+    fn = _cuda.library("sell_spmv").lsb_spmv_sell_f32
     return {"ms": median_ms(lambda: ops.spmv_sell(S, x)),
-            "kernel_alone_ms": kernel_alone_ms(
-                _cuda.library("sell_spmv").lsb_spmv_sell_f32, args),
+            "kernel_alone_ms": kernel_alone_ms(fn, args),
+            "device_ms_l2_warm": profiled_kernel_ms(fn, args,
+                                                    "spmv_sell_f32_kernel"),
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
             "layout_bound_ms": layout_bound_ms(nbytes),
             "library_ms": library_ms(M, torch.float32, x)}
@@ -760,10 +871,10 @@ def sell_operator_times(M, S, x) -> dict:
 def amg_kernel_phase(A) -> tuple[dict, dict]:
     """K4 against its plain version and the host f64 matvec on every
     window-ELL operator of the amg_classical hierarchy of RCM-ordered
-    poisson_2d(512), and the SELL f32 kernel (the redesigned K1) on every
-    operator laid out as SELL. Returns K4's {max_abs_err, ms, plain_ms,
-    shape} with the times of the level-0 P, and the SELL kernel's times on
-    the level-1 A."""
+    poisson_2d(512), each beside the SELL f32 kernel on the same operator,
+    and the SELL f32 kernel (the redesigned K1) on every operator laid out
+    as SELL. Returns K4's {max_abs_err, ms, plain_ms, shape, ...} with the
+    times of the level-0 P, and the SELL kernel's times on the level-1 A."""
     import torch
 
     from lsbench_tpu_torch.matrix.sell import SellMatrix
@@ -852,13 +963,23 @@ def amg_kernel_phase(A) -> tuple[dict, dict]:
                   f"{host_err:.3e} > {host_tol:.3e}")
             ms = median_ms(lambda: spmv_well(op, x))
             plain_ms = median_ms(lambda: spmv_well_plain(op, x))
-            launch_ms = well_launch_ms(op, x)
+            host_ms = host_call_ms(lambda: spmv_well(op, x))
+            launch_ms, warm_ms = well_launch_ms(op, x)
             nbytes = op.bytes_streamed
+            # The SELL f32 kernel on the same operator and x, for the AMG
+            # layout model's window-ELL against SELL choice.
+            same = sell_operator_times(M, SellMatrix.from_csr(M, device=dev),
+                                       x)
             print(f"kernel spmv_well_f32 [{label}]: max_abs_err={err:.3e} "
                   f"(tol {tol:.3e}) host_err={host_err:.3e} wrapper "
-                  f"{ms:.4f} ms, kernel alone {launch_ms:.4f} ms "
-                  f"({nbytes / launch_ms / 1e6:.1f} GB/s of {nbytes} B), "
-                  f"plain {plain_ms:.4f} ms")
+                  f"{ms:.4f} ms (host {host_ms:.4f} ms per call), kernel "
+                  f"alone {launch_ms:.4f} ms, device (profiler) L2-warm "
+                  f"{_fmt(warm_ms)} ms ({nbytes} B), plain {plain_ms:.4f} "
+                  f"ms; SELL f32 on the same operator: wrapper "
+                  f"{same['ms']:.4f} ms, kernel alone "
+                  f"{same['kernel_alone_ms']:.4f} ms, device (profiler) "
+                  f"L2-warm {_fmt(same['device_ms_l2_warm'])} ms "
+                  f"({same['bytes']} B)")
             result["max_abs_err"] = max(result["max_abs_err"], err)
             n_well += 1
             if lvl == 0 and key == "p":
@@ -867,10 +988,16 @@ def amg_kernel_phase(A) -> tuple[dict, dict]:
                            + op.w0.numel() + M.ncols + M.nrows)
                 lib = library_ms(M, torch.float32, x)
                 result.update(ms=ms, plain_ms=plain_ms, launch_ms=launch_ms,
+                              wrapper_host_ms=host_ms,
+                              device_ms_l2_warm=warm_ms,
                               shape=f"poisson_2d(512) RCM amg_classical "
                                     f"{label}, k8={op.k8} "
                                     f"k_real={op.k_real} J={op.j_blocks}",
-                              bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+                              bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                              sell_same_operator={
+                                  k: same[k] for k in (
+                                      "ms", "kernel_alone_ms",
+                                      "device_ms_l2_warm")})
                 print(f"  bound {b_ms:.4f} ms ({b_by}), layout bound "
                       f"{layout_bound_ms(lay):.4f} ms ({lay} B), cuSPARSE "
                       f"{lib:.4f} ms")
@@ -998,8 +1125,10 @@ def multi_rhs_paths_phase(tmp: str, matrices, A128) -> list[dict]:
         check(rec["converged"] is True and rec["true_relres"] <= 1e-10,
               f"block-cg {label}: converged {rec['converged']} true_relres "
               f"{rec['true_relres']:.3e}")
-        for k in ("bsr_mm_f32", "sell_f64"):
+        for k in ("sell_mm_f32", "sell_f64"):
             check(ran[k] > 0, f"block-cg {label}: kernel {k} never launched")
+        check(ran["bsr_mm_f32"] == 0, f"block-cg {label}: K3's BSR port "
+                                      f"launched {ran}")
         print(f"block-cg path {label} (--nrhs 8): block iters={rec['iters']}"
               f" passes={rec['refine_passes']} method={rec['method']} "
               f"precision={rec['precision']} "
@@ -1020,8 +1149,8 @@ def multi_rhs_paths_phase(tmp: str, matrices, A128) -> list[dict]:
           f"ginkgo --nrhs 8: solver {rec['solver']}")
     check(rec["converged"] is True and rec["true_relres"] <= 1e-4,
           f"ginkgo --nrhs 8: true_relres {rec['true_relres']:.3e}")
-    check(ran["bsr_mm_f32"] > 0 and ran["sell_f64"] > 0,
-          f"ginkgo --nrhs 8: kernels {ran}")
+    check(ran["sell_mm_f32"] > 0 and ran["sell_f64"] > 0
+          and ran["bsr_mm_f32"] == 0, f"ginkgo --nrhs 8: kernels {ran}")
     max_refine = inspect.signature(BatchedBicgstabSolver).parameters[
         "max_refine"].default
     print(f"ginkgo path {label} (--nrhs 8, batched BiCGSTAB): "
@@ -1055,6 +1184,8 @@ def multi_rhs_paths_phase(tmp: str, matrices, A128) -> list[dict]:
              "1e-10", "--trials", "1", "--warmups", "1", "--json"]
     f128 = files["poisson_2d(128)"]
     rec_dev, ran, _ = cli_path("block-cg 128 cuda", f128, small)
+    check(ran["sell_mm_f32"] > 0 and ran["bsr_mm_f32"] == 0,
+          f"block-cg poisson_2d(128): kernels {ran}")
     counts.append(ran)
     rec_cpu, ran_cpu, _ = cli_path("block-cg 128 cpu", f128,
                                    small + ["--platform", "cpu"])
@@ -1409,7 +1540,8 @@ def main() -> int:
     import lsbench_tpu_torch  # noqa: F401  (fails here, before any output, outside the repo)
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     card = card_line()
-    print(f"card: {card}  torch {torch.__version__} cuda {torch.version.cuda}")
+    print(f"card: {card}  driver {card_line('driver_version')}  torch "
+          f"{torch.__version__} cuda {torch.version.cuda}")
     print(f"build: {build_kernels():.2f} s")
 
     matrices = main_path_matrices()
@@ -1473,7 +1605,9 @@ def main() -> int:
                                              "device_ms_l2_warm",
                                              "device_ms_l2_cold",
                                              "random_spd(6408,23)",
-                                             "amg_level1_a") if k in m}})
+                                             "amg_level1_a",
+                                             "sell_same_operator")
+                           if k in m}})
     print("paths: " + json.dumps(PATHS))
     print(card)
     print(json.dumps({"kernels": kernels}))

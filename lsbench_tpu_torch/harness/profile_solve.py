@@ -4,7 +4,8 @@
 
 For each case (RCM-ordered poisson_2d(512) and random_spd(6408, 23) with
 the Jacobi preconditioner, and poisson_2d(512) with `amg_classical`; cg_ir,
-rtol 1e-10, b[i] = i; then block CG on RCM poisson_2d(512) with `--nrhs 8`'s
+rtol 1e-10, b[i] = i; then block CG (rtol 1e-10) and batched BiCGSTAB
+(`ginkgo`'s rtol 1e-4) on RCM poisson_2d(512) with `--nrhs 8`'s
 right-hand sides — the solves chip_smoke.py drives through the CLI):
 
 1. set the solver up and solve once (kernel build, first launches);
@@ -22,8 +23,8 @@ preconditioner, `spmv_ms` is the inner f32 SpMV kernel's device time per CG
 iteration (one SpMV each), and `spmv_gbps` the inner operator's layout
 bytes (`bytes_streamed`) over that time; with AMG the same kernels also
 run inside the V-cycle, so those two are left out. `groups` sums the device time by kind
-of kernel (K1-K5, the sliced-ELL kernels that replace K5 and K2 on the
-solver paths, QR, eigh, GEMM, PyTorch's elementwise and reduction
+of kernel (K1-K5, the sliced-ELL kernels that replace K1, K2, K3 and K5
+on the solver paths, QR, eigh, GEMM, PyTorch's elementwise and reduction
 kernels, copies) by substrings of the kernel names (`GROUPS`).
 
 Prints one JSON object per matrix; `--out` also writes them, with the full
@@ -43,6 +44,7 @@ import torch
 
 from lsbench_tpu_torch.harness.bench import reference_rhs
 from lsbench_tpu_torch.matrix.generate import poisson_2d, random_spd
+from lsbench_tpu_torch.solvers.batched_bicgstab import BatchedBicgstabSolver
 from lsbench_tpu_torch.solvers.block_cg import BlockCgSolver
 from lsbench_tpu_torch.solvers.refine import CgIrSolver
 
@@ -53,6 +55,7 @@ INNER_KERNELS = ("spmv_bsr_f32_kernel", "spmv_sell_f32_kernel",
                  "spmv_bsr_classed_f32_kernel")
 # Kind of kernel → substrings of its names (lower case), first match wins.
 GROUPS = (
+    ("SELL SpMM (K3)", ("spmm_sell_f32_kernel",)),
     ("K3 spmm_bsr", ("spmm_bsr_f32_kernel",)),
     ("SELL f32", ("spmv_sell_f32_kernel",)),
     ("SELL f64", ("spmv_sell_f64_kernel",)),
@@ -108,11 +111,12 @@ def _union_us(events: list[dict]) -> float:
 
 
 def profile_matrix(label: str, A, device, precond: str = "jacobi",
-                   nrhs: int = 1) -> dict:
+                   nrhs: int = 1, solver_cls=None, rtol: float = 1e-10) -> dict:
     b = torch.as_tensor(reference_rhs(A.nrows, nrhs), device=device)
     t0 = time.perf_counter()
-    solver = (BlockCgSolver if nrhs > 1 else CgIrSolver)(
-        A, rtol=1e-10, ordering="rcm", precond=precond, device=device)
+    solver_cls = solver_cls or (BlockCgSolver if nrhs > 1 else CgIrSolver)
+    solver = solver_cls(A, rtol=rtol, ordering="rcm", precond=precond,
+                        device=device)
     setup_s = time.perf_counter() - t0
     _timed_solve(solver, b)
     walls, res = [], None
@@ -149,7 +153,8 @@ def profile_matrix(label: str, A, device, precond: str = "jacobi",
         g["count"] += d["count"]
     busy_s = _union_us(events) / 1e6
     out = {
-        "matrix": label, "precond": precond, "nrhs": nrhs, "n": A.nrows,
+        "matrix": label, "solver": solver_cls.__name__, "precond": precond,
+        "nrhs": nrhs, "n": A.nrows,
         "nnz": A.nnz, "iters": res.iters,
         "passes": res.extra["refine_passes"],
         "inner_op": type(solver._op).__name__, "setup_s": setup_s,
@@ -182,12 +187,14 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
     results = []
     p512 = poisson_2d(512)
-    for label, A, precond, nrhs in (
-            ("poisson_2d(512)", p512, "jacobi", 1),
-            ("random_spd(6408,23)", random_spd(6408, 23), "jacobi", 1),
-            ("poisson_2d(512)", p512, "amg_classical", 1),
-            ("poisson_2d(512)", p512, "jacobi", 8)):
-        r = profile_matrix(label, A, device, precond, nrhs)
+    for label, A, precond, nrhs, extra in (
+            ("poisson_2d(512)", p512, "jacobi", 1, {}),
+            ("random_spd(6408,23)", random_spd(6408, 23), "jacobi", 1, {}),
+            ("poisson_2d(512)", p512, "amg_classical", 1, {}),
+            ("poisson_2d(512)", p512, "jacobi", 8, {}),
+            ("poisson_2d(512)", p512, "jacobi", 8,
+             {"solver_cls": BatchedBicgstabSolver, "rtol": 1e-4})):
+        r = profile_matrix(label, A, device, precond, nrhs, **extra)
         results.append(r)
         top = r["kernels"][:8]
         print(json.dumps({k: v for k, v in r.items() if k != "kernels"}))

@@ -4,7 +4,7 @@
 
 Runs the port's BiCGSTAB recurrence (`solvers/bicgstab.py`,
 `batched_bicgstab_loop`, with its shadow restart) in f32 on the CPU, with
-scipy's f32 CSR product in place of K3 and the f64 residual on the host,
+scipy's f32 CSR product in place of the SpMM kernel and the f64 residual on the host,
 on RCM poisson_2d(grid) with the CLI's `--nrhs` right-hand sides and the
 defaults of `BatchedBicgstabSolver` (rtol 1e-4, inner rtol 1e-5, Jacobi, 6
 passes). Prints each refinement pass's inner iterations and worst-column

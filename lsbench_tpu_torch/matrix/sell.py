@@ -1,13 +1,13 @@
 """Sliced ELL with slices of 32 rows (SELL-32): the layout of the solver
-paths' f32 and f64 SpMV on the card (kernels `csrc/sell_spmv.cu`, wrappers
-`ops/spmv_sell.py`).
+paths' f32 and f64 SpMV and f32 SpMM on the card (kernels
+`csrc/sell_spmv.cu` and `csrc/sell_spmm.cu`, wrappers `ops/spmv_sell.py`).
 
-It takes the place of the uniform `BsrMatrix` (K1), the class-padded
-`BsrClassed` (K5) and the f64-accurate `BsrDf64` (K2) on the solver paths;
-those stay, behind the ops API of `ops/spmv_bsr.py` (block CG's K3 still
-takes the uniform `BsrMatrix`). The JAX package has no counterpart: its 8×128
-blocks match the TPU's (8, 128) vreg tile, and on an RCM-ordered 5-point
-Poisson matrix fewer than 1% of their stored elements are nonzero.
+It takes the place of the uniform `BsrMatrix` (K1 and the SpMM K3), the
+class-padded `BsrClassed` (K5) and the f64-accurate `BsrDf64` (K2) on the
+solver paths; those stay, behind the ops API of `ops/spmv_bsr.py`. The JAX
+package has no counterpart: its 8×128 blocks match the TPU's (8, 128) vreg
+tile, and on an RCM-ordered 5-point Poisson matrix fewer than 1% of their
+stored elements are nonzero.
 
 Rows keep their order and are cut into slices of SLICE = 32 consecutive
 rows, one warp each. Each slice is padded to its own widest row (w_s
@@ -179,3 +179,9 @@ def _validate(S: SellMatrix) -> None:
         check(S.vals, "vals", torch.float32, (S.n_stored,))
     if S.vals64 is not None:
         check(S.vals64, "vals64", torch.float64, (S.n_stored,))
+    # The kernels read x[cols[e]] in place for every stored entry, padding
+    # included: every column must lie inside x.
+    if S.n_stored and not (0 <= int(S.cols.min())
+                           and int(S.cols.max()) < S.ncols):
+        raise ValueError(f"SELL cols outside [0, {S.ncols}): the kernels "
+                         "read x in place")

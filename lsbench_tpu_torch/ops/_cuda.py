@@ -19,6 +19,8 @@ import subprocess
 import tempfile
 import threading
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -33,12 +35,13 @@ SOURCES = {
                  ("lsb_spmv_bsr_classed_f32", 5, 2),
                  ("lsb_spmv_bsr_f64acc", 5, 2),
                  ("lsb_spmm_bsr_f32", 4, 3)),
-    "well_spmv": (("lsb_spmv_well_f32", 5, 2),),
+    "well_spmv": (("lsb_spmv_well_f32", 5, 3),),
     "bsr_variants": (("lsb_spmv_bsr_compact_f32", 5, 1),
                      ("lsb_spmv_bsr_selector_f32", 4, 3),
                      ("lsb_spmv_bsr_onehot_f32", 4, 3)),
     "sell_spmv": (("lsb_spmv_sell_f32", 5, 1),
                   ("lsb_spmv_sell_f64", 5, 1)),
+    "sell_spmm": (("lsb_spmm_sell_f32", 5, 2),),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -129,7 +132,35 @@ def library(stem: str) -> ctypes.CDLL:
     return _libs[stem]
 
 
+_entries: dict = {}
+
+
+def entry(stem: str, name: str):
+    """The entry point `lsb_<name>` of `csrc/<stem>.cu`, built and loaded
+    on first use, then looked up from a dict."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(library(stem), "lsb_" + name)
+    return fn
+
+
 def check(rc: int, name: str) -> None:
     """Raise if a kernel entry point reported a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+def launch(fn, name: str, device: torch.device, *args) -> None:
+    """Call the entry point `fn` with `args` and the current stream of
+    `device` (a CUDA device with its index), inside that device's context
+    where it is not the current one; raise on a CUDA error. The stream is
+    taken as a raw handle, the accessor PyTorch's own generated launchers
+    use: it builds no Stream object, so a call costs little host time."""
+    idx = device.index
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    if idx == torch._C._cuda_getDevice():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(idx):
+            rc = fn(*args, stream)
+    check(rc, name)

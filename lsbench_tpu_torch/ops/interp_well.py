@@ -15,12 +15,20 @@ neighbouring words:
 
     y[r] = Σ_{s < k_real} vals[s, r] · x[128·w0[r // 128] + lcols[s, r]]
 
-The source vector is read from a zero-padded table of ctab = ceil(ncols /
-128) + J blocks, so a window never reads past the buffer.
+x is read in place. The TPU kernel read whole windows and so needed x
+zero-padded by J blocks; a slot here reads only its own entry, and
+validation (at `from_csr`, `from_jax_arrays` and `.to`) proves once that
+every index read for a row < nrows and a slot < k_real lies in [0, ncols):
+a real slot reads its own column, a padding slot (lcols 0) 128·w0, at most
+its tile's smallest column (0 in an empty tile). A layout that breaks this
+is refused. The validation also pins what the kernel takes (int32 rows),
+so a call checks only x, allocates y (nrows,), and launches once with the entry point looked up once and the raw stream
+handle taken without a Stream object (`_cuda.launch`).
 
-Dispatch: tensors on the CPU go to `spmv_well_plain`; tensors on one CUDA
-device launch the kernel (`csrc/well_spmv.cu`) or raise. Each launch adds
-one to `LAUNCHES["well_f32"]`.
+Dispatch: x on the CPU with the layout on the CPU goes to
+`spmv_well_plain`; x on the layout's CUDA device launches the kernel
+(`csrc/well_spmv.cu`); anything else raises. Each launch adds one to
+`LAUNCHES["well_f32"]`.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ import numpy as np
 import torch
 
 from lsbench_tpu_torch.ops import _cuda  # builds nothing until first launch
-from lsbench_tpu_torch.ops.spmv_bsr import _check, _on_cpu, _stream
+from lsbench_tpu_torch.ops.spmv_bsr import _check
 
 TR = 128      # fine rows per window tile
 TPS = 8       # tiles per TPU grid step: n_pad is a multiple of TR·TPS, as
@@ -61,6 +69,9 @@ class WindowEll:
     j_blocks: int        # J: window width in 128-blocks
     k_real: int = 0      # true max nnz/row (≤ k8); slots past it are zero
 
+    def __post_init__(self):
+        _validate(self)  # at every construction: from_*, .to, replace
+
     @property
     def k8(self) -> int:
         return self.vals.shape[0]
@@ -70,9 +81,9 @@ class WindowEll:
         return self.vals.shape[1]
 
     @property
-    def ctab(self) -> int:
-        """Source table blocks, with J blocks of zero slack."""
-        return _round_up(self.ncols, TR) // TR + self.j_blocks
+    def k_eff(self) -> int:
+        """Slots summed per row: k_real, or k8 where k_real is unknown (0)."""
+        return self.k_real or self.k8
 
     @property
     def bytes_streamed(self) -> int:
@@ -84,9 +95,9 @@ class WindowEll:
                  device="cuda") -> "WindowEll | None":
         """Build the layout, or None where the JAX package's `from_csr`
         refuses it: not f32, more than max_k nonzeros per row, a window
-        wider than max_j blocks (not banded), or a source table over
-        max_table_blocks (the TPU's VMEM budget, kept so that both packages
-        choose the same layouts)."""
+        wider than max_j blocks (not banded), or a source table of
+        ceil(ncols/128) + J blocks over max_table_blocks (the TPU's VMEM
+        budget, kept so that both packages choose the same layouts)."""
         if dtype != torch.float32:
             return None
         n, nc = M.nrows, M.ncols
@@ -138,11 +149,10 @@ class WindowEll:
                 raise ValueError(f"expected {np.dtype(dtype)} array, got {a.dtype}")
             return torch.from_numpy(np.require(a, requirements=["C", "W"]))
 
-        op = WindowEll(vals=t(vals, np.float32), lcols=t(lcols, np.int32),
-                       w0=t(w0, np.int32), nrows=nrows, ncols=ncols, nnz=nnz,
-                       j_blocks=j_blocks, k_real=k_real)
-        _validate(op)
-        return op.to(device)
+        return WindowEll(vals=t(vals, np.float32), lcols=t(lcols, np.int32),
+                         w0=t(w0, np.int32), nrows=nrows, ncols=ncols,
+                         nnz=nnz, j_blocks=j_blocks,
+                         k_real=k_real).to(device)
 
     def to(self, device) -> "WindowEll":
         return dataclasses.replace(self, vals=self.vals.to(device),
@@ -150,49 +160,59 @@ class WindowEll:
                                    w0=self.w0.to(device))
 
 
+def _read_index(op: WindowEll) -> torch.Tensor:
+    """(k_eff, nrows) int64: the x index each slot of each row reads."""
+    base = (op.w0.long() * TR).repeat_interleave(TR)[: op.nrows]
+    return base[None, :] + op.lcols[: op.k_eff, : op.nrows].long()
+
+
 def _validate(op: WindowEll) -> None:
+    """What the kernel assumes of the arrays; the wrapper checks only x."""
     k8, n_pad = op.vals.shape
     _check(op.vals, "vals", torch.float32)
     _check(op.lcols, "lcols", torch.int32, (k8, n_pad))
     _check(op.w0, "w0", torch.int32, (n_pad // TR,))
-    if n_pad % TR or n_pad < op.nrows or not 0 <= op.k_real <= k8:
+    if len({op.vals.device, op.lcols.device, op.w0.device}) != 1:
+        raise ValueError("window-ELL arrays on more than one device")
+    if (n_pad % TR or not 0 < op.nrows <= n_pad or op.ncols < 1
+            or not 0 <= op.k_real <= k8):
         raise ValueError(f"window-ELL arrays of shape {(k8, n_pad)} do not "
-                         f"hold {op.nrows} rows of {op.k_real} slots")
+                         f"hold {op.nrows} rows of {op.k_real} slots over "
+                         f"{op.ncols} columns")
     if n_pad >= 2**31:
         raise ValueError(f"{n_pad} padded rows exceed the kernel's int32 rows")
-
-
-def _x_table(op: WindowEll, v: torch.Tensor) -> torch.Tensor:
-    """v in f32, zero-padded to the (ctab·128,) source table."""
-    if v.shape != (op.ncols,):
-        raise ValueError(f"x: expected shape ({op.ncols},), got {tuple(v.shape)}")
-    xt = torch.zeros(op.ctab * TR, dtype=torch.float32, device=v.device)
-    xt[: op.ncols] = v
-    return xt
+    idx = _read_index(op)
+    lo, hi = int(idx.min()), int(idx.max())
+    if lo < 0 or hi >= op.ncols:
+        raise ValueError(f"window-ELL reads x[{lo}..{hi}] outside [0, "
+                         f"{op.ncols}): the kernel reads x in place")
 
 
 def spmv_well_plain(op: WindowEll, v: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch y = M v over the window-ELL layout (f32)."""
-    xt = _x_table(op, v)
-    k = op.k_real or op.k8
-    base = (op.w0.long() * TR).repeat_interleave(TR)            # (n_pad,)
-    gathered = xt[base[None, :] + op.lcols[:k].long()]          # (k, n_pad)
-    return (op.vals[:k] * gathered).sum(dim=0)[: op.nrows]
+    """Plain PyTorch y = M v over the window-ELL layout (f32), x in place."""
+    k = op.k_eff
+    return (op.vals[:k, : op.nrows] * v[_read_index(op)]).sum(dim=0)
 
 
 def spmv_well(op: WindowEll, v: torch.Tensor) -> torch.Tensor:
-    """y = M v through the window-ELL layout; v (ncols,) → y (nrows,) f32."""
-    _validate(op)
-    if _on_cpu(op.vals, op.lcols, op.w0, v):
+    """y = M v through the window-ELL layout; v (ncols,) f32 → y (nrows,)
+    f32."""
+    name = "spmv_well_f32"
+    if v.dtype != torch.float32:
+        raise TypeError(f"{name}: x must be torch.float32, got {v.dtype}")
+    if v.shape != (op.ncols,) or not v.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous of shape "
+                         f"({op.ncols},), got {tuple(v.shape)}")
+    dev = v.device
+    if dev != op.vals.device or dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: x on {dev}, the layout on "
+                         f"{op.vals.device}: need both on the CPU (plain "
+                         "version) or on one CUDA device (kernel)")
+    if dev.type == "cpu":
         return spmv_well_plain(op, v)
-    lib = _cuda.library("well_spmv")
-    xt = _x_table(op, v)
-    y = torch.empty(op.n_pad, dtype=torch.float32, device=v.device)
-    with torch.cuda.device(v.device):
-        rc = lib.lsb_spmv_well_f32(
-            op.vals.data_ptr(), op.lcols.data_ptr(), op.w0.data_ptr(),
-            xt.data_ptr(), y.data_ptr(), op.n_pad, op.k_real or op.k8,
-            _stream(v.device))
-    _cuda.check(rc, "spmv_well_f32")
+    y = torch.empty(op.nrows, dtype=torch.float32, device=dev)
+    _cuda.launch(_cuda.entry("well_spmv", name), name, dev,
+                 op.vals.data_ptr(), op.lcols.data_ptr(), op.w0.data_ptr(),
+                 v.data_ptr(), y.data_ptr(), op.nrows, op.n_pad, op.k_eff)
     LAUNCHES["well_f32"] += 1
-    return y[: op.nrows]
+    return y

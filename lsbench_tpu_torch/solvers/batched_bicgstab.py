@@ -3,7 +3,8 @@ of `lsbench_tpu/solvers/batched_bicgstab.py`).
 
 k right-hand sides are k independent BiCGSTAB recurrences: each column
 carries its own scalars (rho, alpha, omega) as (k,) vectors while every
-matvec is one SpMM (K3) over the shared block stream. The recurrence,
+matvec is one SpMM (`spmm_sell`, the redesigned K3) over the shared
+sliced-ELL stream. The recurrence,
 its guards and its shadow restart live in `bicgstab.batched_bicgstab_loop`,
 shared with the one-RHS `bicgstab_loop`: a broken or stalled column freezes
 while the others go on. The refinement structure (f32 inner, f64 residual

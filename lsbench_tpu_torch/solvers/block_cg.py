@@ -1,9 +1,10 @@
 """Multi-RHS (block) CG: solve A X = B for k right-hand sides at once
 (counterpart of `lsbench_tpu/solvers/block_cg.py`).
 
-Every inner matvec is one SpMM (`spmm_bsr`, kernel K3) over the uniform f32
-BSR operator, so the k columns share one stream of its blocks. Two inner
-iterations, as in the JAX package:
+Every inner matvec is one SpMM (`spmm_sell`, the redesigned kernel K3) over
+the f32 sliced ELL of the operator, so the k columns share one stream of
+its entries; the JAX package streams its uniform 8×128 BSR blocks there
+(`spmm_bsr`). Two inner iterations, as in the JAX package:
 
 - method="shared" (default): BCGrQ, true block CG in one block-Krylov
   subspace with split Jacobi (Ã = S·A·S, S = diag(|d|)^{-1/2}); the residual
@@ -15,7 +16,8 @@ iterations, as in the JAX package:
   that does not split (anything but none/jacobi, e.g. amg).
 
 Precision: f32 inner solve + one f64 residual per refinement pass (the
-sliced-ELL f64 product that replaces K2, one launch per column), reported
+sliced-ELL f64 product that replaces K2, on the SpMM's own SELL structure,
+one launch per column), reported
 as `fp32_ir`. The k×k algebra and the (n,k)·(k,k) products run in full f32
 (`full_f32`, JAX's Precision.HIGHEST) through torch.linalg and torch.matmul,
 as the JAX package leaves them to XLA. Each stop test reads the device once
@@ -29,9 +31,9 @@ import time
 import numpy as np
 import torch
 
-from lsbench_tpu_torch.matrix.bsr import BsrMatrix
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
-from lsbench_tpu_torch.ops.spmv_bsr import spmm_bsr
+from lsbench_tpu_torch.matrix.sell import SellMatrix
+from lsbench_tpu_torch.ops.spmv_sell import spmm_sell
 from lsbench_tpu_torch.solvers.base import SolveResult, Solver, register_solver
 from lsbench_tpu_torch.solvers.cg import full_f32, permutation
 from lsbench_tpu_torch.solvers.preconditioners import get_preconditioner
@@ -158,8 +160,9 @@ def column_precond(precond: str, state, papply):
 
 
 class MultiRhsIrSolver(Solver):
-    """f32 inner solve of A D = R over k columns on K3 + one f64 residual
-    per refinement pass (`spmv_sell_f64` per column). Subclasses provide
+    """f32 inner solve of A D = R over k columns on the SELL SpMM + one f64
+    residual per refinement pass (`spmv_sell_f64` per column, sharing the
+    SpMM's structure). Subclasses provide
     `_inner_loop(R32) -> (D32, iters)`. solve(B) takes (n, k) or a 1-D b
     (k = 1, returned 1-D); relres/converged report the worst column."""
 
@@ -177,9 +180,12 @@ class MultiRhsIrSolver(Solver):
         self._Ap, self._perm, self._inv = permutation(ordering, A, self.device)
         self.setup_breakdown["ordering_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        self._op = BsrMatrix.from_csr(self._Ap, dtype=torch.float32,
-                                      device=self.device)
-        self._mm = lambda V: spmm_bsr(self._op, V)
+        self._op = SellMatrix.from_csr(self._Ap, dtypes=(torch.float32,),
+                                       device=self.device)
+        # The SpMM reads X row-major in place; the QR of the shared loop
+        # returns column-major blocks, which this one copy makes row-major
+        # (a no-op on the other loops' blocks).
+        self._mm = lambda V: spmm_sell(self._op, V.contiguous())
         self._resid_mv = f64_residual_matvec(self._Ap, self._op, self.device)
         self.setup_breakdown["layout_s"] = time.perf_counter() - t0
 

@@ -142,6 +142,19 @@ def test_with_f64_shares_the_structure():
                                     moved.vals64)} == {"meta"}
 
 
+def test_layout_refuses_columns_outside_x():
+    """The kernels read x[cols] in place, padding included: a column
+    outside [0, ncols) is refused when the layout is built."""
+    A = _ragged()
+    narrow = CsrMatrix(A.nrows, int(A.cols.max()), A.offs, A.cols, A.vals)
+    with pytest.raises(ValueError, match="outside"):
+        SellMatrix.from_csr(narrow, device=CPU)
+    negative = CsrMatrix(A.nrows, A.ncols, A.offs,
+                         np.where(A.cols == 0, -1, A.cols), A.vals)
+    with pytest.raises(ValueError, match="outside"):
+        SellMatrix.from_csr(negative, device=CPU)
+
+
 @pytest.mark.parametrize("name", sorted(MATRICES))
 def test_spmv_sell_plain_matches_jax_classed_and_host(name):
     JA, A = _case(name)
