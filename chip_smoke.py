@@ -62,11 +62,18 @@ Phases, each of which raises (exit code 1) on failure:
    of each other, and the CPU run launches nothing.
 9. Alternate SpMV kernels K6 (exact-block `spmv_bsr_compact`), K7
    (`spmv_bsr(variant="selector")`) and K8 (`variant="onehot"`), which no
-   solver path runs: first their API path (each public entry called once
-   on RCM poisson_2d(512) and random_spd(6408, 23), each result within
-   2e-5·max|y| of the host f64 CSR matvec), then each kernel against its
-   plain version (within 1e-5·max|y|) with the median CUDA-event times,
-   bounds and cuSPARSE's time. The 1.34 GB selector is freed after it.
+   solver path runs. K7 and K8 run the SELL f32 kernel over the uniform
+   layout's packed form for their gather rule, built once per layout
+   (`pack_ms`). First their API path (each public entry called once on
+   RCM poisson_2d(512) and random_spd(6408, 23), each result within
+   2e-5·max|y| of the host f64 CSR matvec, none counted as `sell_f32`),
+   then each kernel against its plain version (within 1e-5·max|y|) with
+   the median CUDA-event times, bounds and cuSPARSE's time; K7 and K8 also
+   bit for bit `spmv_sell` on `SellMatrix.from_csr` of the same matrix,
+   bitwise repeatable, one SELL kernel and no other device work per call
+   (profiler), with their host ms per call, profiler device ms L2-warm and
+   L2-cold beside `spmv_sell`'s on the same operator, the packed layout's
+   bound and the dense design's. The 1.34 GB selector is freed after it.
 10. The XLA-only layouts through the CLI: `cg_ir --opt layout=ell` on
    poisson_2d(512) (true relres ≤ 1e-10 through the f64 SELL product, with
    no K1, K5 or SELL f32 launch) and fp64 `cg --opt layout=bsr_xla` on
@@ -147,9 +154,10 @@ KERNELS = {
                      "lsbench_tpu/ops/spmv_pallas.py:255"),
     "spmv_bsr_compact_f32": ("bsr_compact_f32", VARIANTS_SOURCE,
                              "lsbench_tpu/ops/spmv_pallas.py:543"),
-    "spmv_bsr_selector_f32": ("bsr_selector_f32", VARIANTS_SOURCE,
+    # K7 and K8: the SELL f32 kernel over the layout's packed forms.
+    "spmv_bsr_selector_f32": ("bsr_selector_f32", SELL_SOURCE,
                               "lsbench_tpu/ops/spmv_pallas.py:135"),
-    "spmv_bsr_onehot_f32": ("bsr_onehot_f32", VARIANTS_SOURCE,
+    "spmv_bsr_onehot_f32": ("bsr_onehot_f32", SELL_SOURCE,
                             "lsbench_tpu/ops/spmv_pallas.py:27"),
     # The redesigns of K5 and K2 for the solver paths (sliced ELL).
     "spmv_sell_f32": ("sell_f32", SELL_SOURCE,
@@ -478,6 +486,24 @@ def kernel_alone_ms(fn, args, launches: int = 200) -> float:
     return start.elapsed_time(end) / launches
 
 
+def traced_device_events(run) -> list[dict]:
+    """The device events (kernels, copies, memsets) of `run()` under
+    torch.profiler, from its chrome trace."""
+    import torch
+
+    from lsbench_tpu_torch.harness.profile_solve import _device_events
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        return _device_events(path)
+
+
 def profiled_kernel_ms(fn, args, kernel: str, flush=None,
                        launches: int = 50) -> float | None:
     """Median device duration of the kernel named `kernel` over `launches`
@@ -486,23 +512,13 @@ def profiled_kernel_ms(fn, args, kernel: str, flush=None,
     from HBM. None if the trace holds no such kernel."""
     import statistics
 
-    import torch
-
-    from lsbench_tpu_torch.harness.profile_solve import _device_events
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    def run():
         for _ in range(launches):
             if flush is not None:
                 flush.zero_()
             fn(*args)
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        durs = [e["dur"] for e in _device_events(path)
-                if e["cat"] == "kernel" and kernel in e["name"]]
+    durs = [e["dur"] for e in traced_device_events(run)
+            if e["cat"] == "kernel" and kernel in e["name"]]
     return statistics.median(durs) / 1e3 if durs else None
 
 
@@ -1210,30 +1226,50 @@ def variant_kernels_phase(matrices) -> tuple[dict, dict]:
     """K6, K7 and K8 on the RCM layouts of both matrices. Returns the record
     entries (times at poisson_2d(512)) and the launch counts of the API
     path: one call of each public entry per matrix, counters set to 0 just
-    before and read just after."""
+    before and read just after. K7 and K8 run the SELL f32 kernel over the
+    layout's packed form for their gather rule, built once per layout
+    (`pack_ms`) before the API path."""
     import torch
 
     from lsbench_tpu_torch.matrix.bsr import BsrCompact, BsrMatrix
+    from lsbench_tpu_torch.matrix.sell import SellMatrix
+    from lsbench_tpu_torch.ops import _cuda
     from lsbench_tpu_torch.ops import spmv_bsr as ops
+    from lsbench_tpu_torch.ops import spmv_sell
     from lsbench_tpu_torch.ordering import rcm_ordering
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(2)
-    layouts = {}
+    rules = {"spmv_bsr_selector_f32": "selector",
+             "spmv_bsr_onehot_f32": "onehot"}
+    layouts, pack_ms = {}, {}
     for label, A in matrices.items():
         P = A.permuted(rcm_ordering(A))
         t0 = time.perf_counter()
         B = BsrMatrix.from_csr(P, device=dev, with_sel=True)
         C = BsrCompact.from_csr(P, device=dev)
         torch.cuda.synchronize()
+        built_s = time.perf_counter() - t0
+        for name, rule in rules.items():
+            # The first pack of the process, then the same pack again on a
+            # copy of the layout (`.to` starts an empty cache).
+            times = []
+            for layout in (B, B.to(dev)):
+                t0 = time.perf_counter()
+                packed = layout.packed(rule)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            pack_ms[label, name] = times
+            print(f"pack {rule} {label} RCM: n_stored={packed.n_stored} "
+                  f"nnz={packed.nnz} in {times[0]:.2f} ms (again "
+                  f"{times[1]:.2f} ms)")
         x_np = rng.standard_normal(P.ncols)
         layouts[label] = (P, B, C, x_np, torch.as_tensor(
             x_np, dtype=torch.float32, device=dev))
         print(f"variant layouts {label} RCM: uniform G={B.n_groups} "
               f"S={B.slots} C={B.n_col_blocks} ({B.bytes_streamed} B blocks,"
               f" {B.sel.numel() * 4} B selector), exact T={C.n_blocks} "
-              f"({C.bytes_streamed} B) built in "
-              f"{time.perf_counter() - t0:.2f} s")
+              f"({C.bytes_streamed} B) built in {built_s:.2f} s")
 
     entries = {  # kernel → (public entry, plain version, layout index)
         "spmv_bsr_compact_f32": (ops.spmv_bsr_compact,
@@ -1254,6 +1290,8 @@ def variant_kernels_phase(matrices) -> tuple[dict, dict]:
     for name in entries:
         check(api_counts[KERNELS[name][0]] == len(layouts),
               f"{name}: API path launches {api_counts}")
+    check(api_counts["sell_f32"] == 0,
+          f"K7/K8 counted under sell_f32: {api_counts}")
     host_errs = {}
     for (label, name), y in api_out.items():
         P, x_np = layouts[label][0], layouts[label][3]
@@ -1268,52 +1306,132 @@ def variant_kernels_phase(matrices) -> tuple[dict, dict]:
     del api_out
     print(f"spmv variants API path: launches={api_counts}")
 
+    sell_fn = _cuda.library("sell_spmv").lsb_spmv_sell_f32
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def sell_args(S, x, y):
+        return (S.vals.data_ptr(), S.cols.data_ptr(), S.slice_off.data_ptr(),
+                x.data_ptr(), y.data_ptr(), S.nrows, stream)
+
+    def sell_bytes(S):  # vals f32, cols int32, slice_off int64
+        return 8 * S.n_stored + 8 * S.slice_off.numel()
+
     results = {}
     for label, (P, B, C, x_np, x) in layouts.items():
         lib = library_ms(P, torch.float32, x)
-        sel_bytes = B.sel.numel() * 4
         io_bytes = (P.ncols + P.nrows) * 4
-        # The bytes each kernel's layout streams: the arrays it reads (x and
-        # y are added in the layout bound).
-        work = {
-            "spmv_bsr_compact_f32": (
-                C.bytes_streamed + 4 * (C.bcols.numel() + C.goff.numel()),
-                "compact"),
-            "spmv_bsr_selector_f32": (B.bytes_streamed + sel_bytes,
+        b_ms, b_by = function_bound(P, 4, "f32")
+        # spmv_sell on the CSR's own SELL layout: K7 and K8 must give its
+        # bits, and are timed beside it on the same operator.
+        R = SellMatrix.from_csr(P, device=dev)
+        y_sell = spmv_sell.spmv_sell(R, x)
+        y_buf = torch.empty(P.nrows, dtype=torch.float32, device=dev)
+        sell_warm = profiled_kernel_ms(sell_fn, sell_args(R, x, y_buf),
+                                       "spmv_sell_f32_kernel")
+        sell_cold = profiled_kernel_ms(sell_fn, sell_args(R, x, y_buf),
+                                       "spmv_sell_f32_kernel", flush)
+        sell_ms = median_ms(lambda: spmv_sell.spmv_sell(R, x))
+        sell_host_ms = host_call_ms(lambda: spmv_sell.spmv_sell(R, x))
+        print(f"spmv_sell_f32 [{label} RCM sell, same operator]: wrapper "
+              f"{sell_ms:.4f} ms (host {sell_host_ms:.4f} ms per call), "
+              f"device (profiler) L2-warm {_fmt(sell_warm)} ms, L2-cold "
+              f"{_fmt(sell_cold)} ms")
+        # What K7 and K8 streamed per call before they ran on the packed
+        # layout: the dense blocks and the selector or block_cols.
+        earlier = {
+            "spmv_bsr_selector_f32": (B.bytes_streamed + B.sel.numel() * 4,
                                       "uniform + selector"),
             "spmv_bsr_onehot_f32": (B.bytes_streamed
-                                    + 4 * B.block_cols.numel(), "uniform"),
-        }
+                                    + 4 * B.block_cols.numel(), "uniform")}
         for name, (fn, plain, idx) in entries.items():
             op = (P, B, C)[idx]
-            y_k, y_p = fn(op, x), plain(op, x)
+            y_k, y_again, y_p = fn(op, x), fn(op, x), plain(op, x)
             torch.cuda.synchronize()
             scale = float(y_p.abs().max())
             err = float((y_k - y_p).abs().max())
             tol = 1e-5 * scale
             check(err <= tol, f"{name} [{label}]: max|kernel - plain| = "
                               f"{err:.3e} > {tol:.3e}")
-            nbytes, kind = work[name]
             ms = median_ms(lambda: fn(op, x))
             plain_ms = median_ms(lambda: plain(op, x))
-            b_ms, b_by = function_bound(P, 4, "f32")
-            print(f"kernel {name} [{label} RCM {kind}]: max_abs_err="
-                  f"{err:.3e} (tol {tol:.3e}) host_err="
-                  f"{host_errs[label, name]:.3e} kernel {ms:.4f} ms "
-                  f"({nbytes / ms / 1e6:.1f} GB/s of {nbytes} B) plain "
-                  f"{plain_ms:.4f} ms")
             entry = results.setdefault(name, {"max_abs_err": 0.0})
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            times = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib)
+            if name == "spmv_bsr_compact_f32":
+                nbytes = (C.bytes_streamed
+                          + 4 * (C.bcols.numel() + C.goff.numel()))
+                kind, extra = "compact", ""
+            else:
+                check(torch.equal(y_k, y_sell), f"{name} [{label}]: not "
+                      "spmv_sell(SellMatrix.from_csr(P), x) bit for bit")
+                check(torch.equal(y_k, y_again),
+                      f"{name} [{label}]: not bitwise repeatable")
+                S = B.packed(rules[name])
+                nbytes, kind = sell_bytes(S), f"packed {rules[name]}"
+                host_ms = host_call_ms(lambda: fn(op, x))
+                args = sell_args(S, x, y_buf)
+                warm = profiled_kernel_ms(sell_fn, args,
+                                          "spmv_sell_f32_kernel")
+                cold = profiled_kernel_ms(sell_fn, args,
+                                          "spmv_sell_f32_kernel", flush)
+                # One launch per call is the counter's to show (the API
+                # path); the trace shows that nothing else runs on the card
+                # (no fill, no copy). It may miss some of the launches.
+                per_call = wrapper_device_ops(lambda: fn(op, x))
+                check(set(per_call) <= {"spmv_sell_f32_kernel"},
+                      f"{name} [{label}]: device work per call {per_call}")
+                was, was_kind = earlier[name]
+                lay_ms = layout_bound_ms(nbytes + io_bytes)
+                first, again = pack_ms[label, name]
+                times.update(pack_ms=first, pack_again_ms=again,
+                             wrapper_host_ms=host_ms, device_ms_l2_warm=warm,
+                             device_ms_l2_cold=cold, layout_bound_ms=lay_ms,
+                             device_ops_per_call=per_call,
+                             sell_same_operator={
+                                 "ms": sell_ms, "wrapper_host_ms": sell_host_ms,
+                                 "device_ms_l2_warm": sell_warm,
+                                 "device_ms_l2_cold": sell_cold})
+                ratio = (f"{warm / sell_warm:.3f}" if warm and sell_warm
+                         else "n/a")
+                extra = (f"; pack {first:.2f} ms (again {again:.2f}), host "
+                         f"{host_ms:.4f} ms per call, device (profiler) "
+                         f"L2-warm {_fmt(warm)} ms ({ratio}x spmv_sell's), "
+                         f"L2-cold {_fmt(cold)} ms, device work per call "
+                         f"{per_call}, wrapper {ms / lib:.3f}x cuSPARSE; "
+                         f"earlier design {was} B ({was_kind}): layout "
+                         f"bound {layout_bound_ms(was + io_bytes):.4f} ms")
+            print(f"kernel {name} [{label} RCM {kind}]: max_abs_err="
+                  f"{err:.3e} (tol {tol:.3e}) host_err="
+                  f"{host_errs[label, name]:.3e} wrapper {ms:.4f} ms "
+                  f"({nbytes / ms / 1e6:.1f} GB/s of {nbytes} B) plain "
+                  f"{plain_ms:.4f} ms{extra}")
             print(f"  bound {b_ms:.4f} ms ({b_by}), layout bound "
                   f"{layout_bound_ms(nbytes + io_bytes):.4f} ms, cuSPARSE "
                   f"{lib:.4f} ms")
             if label == "poisson_2d(512)":
-                entry.update(ms=ms, plain_ms=plain_ms,
-                             shape=f"{label} RCM {kind}", bound_ms=b_ms,
-                             bound_by=b_by, library_ms=lib)
-    del layouts
+                entry.update(times, shape=f"{label} RCM {kind}")
+        del R
+    del layouts, flush
     torch.cuda.empty_cache()
     return results, api_counts
+
+
+def wrapper_device_ops(fn, calls: int = 20) -> dict:
+    """Device work per call of `fn` under torch.profiler: {kernel, copy or
+    memset name: events in the trace / calls}; the SELL f32 kernel under
+    its short name."""
+    import collections
+    fn()
+
+    def run():
+        for _ in range(calls):
+            fn()
+    short = "spmv_sell_f32_kernel"
+    names = collections.Counter(short if short in e["name"] else e["name"]
+                                for e in traced_device_events(run))
+    return {k: v / calls for k, v in names.items()}
 
 
 def layout_paths_phase(tmp: str, matrices) -> list[dict]:
@@ -1604,6 +1722,9 @@ def main() -> int:
                         **{k: m[k] for k in ("wrapper_host_ms",
                                              "device_ms_l2_warm",
                                              "device_ms_l2_cold",
+                                             "pack_ms", "pack_again_ms",
+                                             "layout_bound_ms",
+                                             "device_ops_per_call",
                                              "random_spd(6408,23)",
                                              "amg_level1_a",
                                              "sell_same_operator")

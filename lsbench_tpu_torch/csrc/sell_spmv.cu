@@ -9,6 +9,10 @@
 //   spmv_sell_f64  replaces lsbench_tpu/ops/spmv_pallas.py::_kernel_df64
 //                  (K2: y = A·x to f64 accuracy from hi/lo f32 blocks).
 // The BSR ports of both stay in bsr_spmv.cu behind the ops API.
+// spmv_sell_f32 also takes the place of K1 on the solver paths and, over a
+// packed form of the uniform BSR layout (BsrMatrix.packed), of
+// spmv_pallas.py::_kernel_selector (K7) and ::_kernel_onehot (K8) on the
+// card: their one-hot products only kept scalar-indexed loads off the TPU.
 //
 // Layout (lsbench_tpu_torch/matrix/sell.py): rows in their order, cut into
 // slices of 32 rows; slice s padded to its widest row w_s and stored

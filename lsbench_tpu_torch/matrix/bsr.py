@@ -23,13 +23,14 @@ tunnel) is not carried over.
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from itertools import combinations
 
 import numpy as np
 import torch
 
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
+from lsbench_tpu_torch.matrix.sell import SellMatrix
 from lsbench_tpu_torch.utils.precision import full_f32
 
 BR = 8    # rows per block
@@ -109,6 +110,10 @@ class BsrMatrix:
     ncols: int
     nnz: int
     sel: torch.Tensor | None = None  # (n_groups*S, n_col_blocks) one-hot f32
+    # Packed forms by gather rule (`packed`); `.to()` and `replace` start
+    # with none, so no form outlives the device it was built on.
+    _packed: dict = field(default_factory=dict, init=False, repr=False,
+                          compare=False)
 
     @property
     def n_groups(self) -> int:
@@ -156,6 +161,28 @@ class BsrMatrix:
                     self.blocks.device)
         return self
 
+    def packed(self, rule: str) -> SellMatrix:
+        """The layout's nonzero elements as an f32 `SellMatrix`, each slot's
+        column block cb found by the gather `rule` of the SpMV variant:
+
+        - "selector": the column of the one nonzero in the slot's selector
+          row (`sel`, built if absent; never `block_cols`). Every row must
+          be exactly one-hot with value 1, or this raises: a general
+          selector would make `sel @ x_table` a real product.
+        - "onehot": `block_cols`; a slot whose id lies outside [0, C)
+          matches no column of the one-hot and is dropped.
+
+        Element (g, s, r, c) becomes entry (8g + r, 128·cb + c). Elements
+        equal to 0, lanes at or past ncols (the x table is 0 there) and
+        rows at or past nrows are dropped; a row keeps its entries in
+        (slot, lane) order. Built once per rule with torch ops on the
+        layout's device (no host copy of the blocks or the selector) and
+        cached on the layout."""
+        S = self._packed.get(rule)
+        if S is None:
+            S = self._packed[rule] = _pack(self, rule)
+        return S
+
     def matvec_xla(self, x: torch.Tensor) -> torch.Tensor:
         """y = A @ x in x's dtype as two dense contractions: the selector
         product gathers the x rows, an einsum applies the blocks. The JAX
@@ -171,6 +198,43 @@ class BsrMatrix:
             y = torch.einsum("gsrc,gsc->gr", blk,
                              g.view(self.n_groups, self.slots, BC))
         return y.reshape(-1)[: self.nrows]
+
+
+def _pack(B: BsrMatrix, rule: str) -> SellMatrix:
+    G, S, C = B.n_groups, B.slots, max(B.n_col_blocks, 1)
+    if B.blocks.dtype != torch.float32 or tuple(B.blocks.shape) != (
+            G, S * BR, BC):
+        raise ValueError(f"blocks: expected float32 of shape {(G, S * BR, BC)}"
+                         f", got {B.blocks.dtype} {tuple(B.blocks.shape)}")
+    if rule == "selector":
+        sel = B.ensure_sel().sel
+        if sel.dtype != torch.float32 or tuple(sel.shape) != (G * S, C):
+            raise ValueError(f"selector: expected float32 of shape "
+                             f"{(G * S, C)}, got {sel.dtype} "
+                             f"{tuple(sel.shape)}")
+        cb = sel.argmax(dim=1)
+        one_hot = ((torch.count_nonzero(sel, dim=1) == 1)
+                   & (sel.gather(1, cb[:, None])[:, 0] == 1))
+        if not bool(one_hot.all()):
+            raise ValueError("selector rows are not exactly one-hot with "
+                             "value 1: sel @ x_table would not be a gather")
+    elif rule == "onehot":
+        if (B.block_cols.dtype != torch.int32
+                or tuple(B.block_cols.shape) != (G, S)):
+            raise ValueError(f"block_cols: expected int32 of shape {(G, S)}")
+        cb = B.block_cols.reshape(-1).long()
+    else:
+        raise ValueError(f"unknown gather rule '{rule}' (selector, onehot)")
+    # Indices in (g, r, s, c) order: row by row, each row's entries in
+    # (slot, lane) order.
+    blk = B.blocks.view(G, S, BR, BC).permute(0, 2, 1, 3)
+    g, r, s, c = torch.nonzero(blk, as_tuple=True)
+    rows = g * BR + r
+    cols = cb[g * S + s] * BC + c
+    # An id outside [0, C) puts all 128 lanes outside [0, ncols).
+    keep = (rows < B.nrows) & (cols >= 0) & (cols < B.ncols)
+    return SellMatrix.from_rows(rows[keep], cols[keep].int(),
+                                blk[g, r, s, c][keep], B.nrows, B.ncols)
 
 
 def _bsr_selector(block_cols: np.ndarray, ncols: int) -> np.ndarray:

@@ -27,8 +27,10 @@ in an empty row), so they read an x entry the row reads anyway. Rows past
 One structure serves both products: `with_f64` adds the f64 values to an
 f32 layout and shares `cols` and `slice_off` with it.
 
-Built on the host in NumPy from the (RCM-ordered) `CsrMatrix`, validated
-once here, and uploaded (`device=`); the wrappers check only x per call.
+Built with torch ops from the (RCM-ordered) `CsrMatrix` on the host and
+uploaded (`device=`), or from row-sorted entries on their own device
+(`from_rows`: the packed forms of a `BsrMatrix`, `matrix/bsr.py`);
+validated once here, so the wrappers check only x per call.
 """
 
 from __future__ import annotations
@@ -44,7 +46,6 @@ from lsbench_tpu_torch.matrix.csr import CsrMatrix
 SLICE = 32  # rows per slice: one warp, one row per thread
 
 _VALUE_FIELDS = {torch.float32: "vals", torch.float64: "vals64"}
-_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
 
 @dataclass
@@ -87,28 +88,44 @@ class SellMatrix:
                  device="cuda") -> "SellMatrix":
         """The layout of A with one value array per dtype in `dtypes`
         (torch.float32 → `vals`, torch.float64 → `vals64`)."""
-        cols, slice_off, pos = _plan(A)
+        cols, slice_off, pos = _csr_plan(A)
+        vals = torch.as_tensor(A.vals)
         values = {"vals": None, "vals64": None}
         for dt in dtypes:
-            values[_VALUE_FIELDS[dt]] = _values(A, pos, cols.size, dt)
-        S = SellMatrix(cols=torch.from_numpy(cols),
-                       slice_off=torch.from_numpy(slice_off), **values,
+            values[_VALUE_FIELDS[dt]] = _values(vals, pos, cols.numel(), dt)
+        S = SellMatrix(cols=cols, slice_off=slice_off, **values,
                        nrows=A.nrows, ncols=A.ncols, nnz=A.nnz)
         _validate(S)
         return S.to(device)
+
+    @staticmethod
+    def from_rows(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+                  nrows: int, ncols: int) -> "SellMatrix":
+        """The f32 layout of the entries (rows[i], cols[i], vals[i]), with
+        `rows` ascending and each row's entries in the order its sum takes
+        them; built with torch ops on the entries' device, no host copy."""
+        out_cols, slice_off, pos = _plan(rows, cols, nrows)
+        S = SellMatrix(cols=out_cols, slice_off=slice_off,
+                       vals=_values(vals, pos, out_cols.numel(),
+                                    torch.float32),
+                       vals64=None, nrows=nrows, ncols=ncols,
+                       nnz=rows.numel())
+        _validate(S)
+        return S
 
     def with_f64(self, A: CsrMatrix) -> "SellMatrix":
         """This layout with A's f64 values beside its own, sharing `cols`
         and `slice_off`. A must be the matrix it was built from."""
         if self.vals64 is not None:
             return self
-        cols, slice_off, pos = _plan(A)
+        cols, slice_off, pos = _csr_plan(A)
         if ((A.nrows, A.ncols, A.nnz) != (self.nrows, self.ncols, self.nnz)
-                or not np.array_equal(slice_off, self.slice_off.cpu().numpy())
-                or not np.array_equal(cols, self.cols.cpu().numpy())):
+                or not torch.equal(slice_off, self.slice_off.cpu())
+                or not torch.equal(cols, self.cols.cpu())):
             raise ValueError("with_f64: A is not the matrix this SELL layout "
                              "was built from")
-        vals64 = _values(A, pos, cols.size, torch.float64)
+        vals64 = _values(torch.as_tensor(A.vals), pos, cols.numel(),
+                         torch.float64)
         out = dataclasses.replace(self, vals64=vals64.to(self.device))
         _validate(out)
         return out
@@ -121,41 +138,48 @@ class SellMatrix:
                                    vals64=move(self.vals64))
 
 
-def _plan(A: CsrMatrix):
-    """(cols int32, slice_off int64, pos): the column array with its
-    padding, the slice offsets, and the stored position of each nonzero in
-    CSR order."""
-    n = A.nrows
-    lens = np.diff(A.offs)
-    n_slices = -(-n // SLICE)
-    padded = np.zeros(n_slices * SLICE, dtype=np.int64)
-    padded[:n] = lens
-    width = padded.reshape(n_slices, SLICE).max(axis=1)
-    slice_off = np.zeros(n_slices + 1, dtype=np.int64)
-    np.cumsum(width * SLICE, out=slice_off[1:])
+def _csr_plan(A: CsrMatrix):
+    return _plan(torch.from_numpy(A.row_indices()),
+                 torch.as_tensor(A.cols, dtype=torch.int32), A.nrows)
+
+
+def _plan(rows: torch.Tensor, cols: torch.Tensor, nrows: int):
+    """(cols int32, slice_off int64, pos int64) of the entries (rows int64
+    ascending, cols int32), on their device: the column array with its
+    padding, the slice offsets, and the stored position of each entry."""
+    dev = rows.device
+    lens = torch.bincount(rows, minlength=nrows)
+    n_slices = -(-nrows // SLICE)
+    padded = torch.zeros(n_slices * SLICE, dtype=torch.int64, device=dev)
+    padded[:nrows] = lens
+    width = padded.view(n_slices, SLICE).amax(dim=1)
+    slice_off = torch.zeros(n_slices + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(width * SLICE, 0, out=slice_off[1:])
     n_stored = int(slice_off[-1])
+    offs = torch.zeros(nrows + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(lens, 0, out=offs[1:])
 
-    # Every stored slot starts as its row's last column, then the nonzeros
+    # Every stored slot starts as its row's last column, then the entries
     # take their places.
-    last = np.zeros(n_slices * SLICE, dtype=np.int32)
+    last = torch.zeros(n_slices * SLICE, dtype=torch.int32, device=dev)
     full = lens > 0
-    last[:n][full] = A.cols[A.offs[1:][full] - 1]
-    slot = np.arange(n_stored, dtype=np.int64)
-    slot_row = (np.repeat(np.arange(n_slices, dtype=np.int64), width * SLICE)
-                * SLICE + slot % SLICE)
-    cols = last[slot_row]
-    rows = A.row_indices()
-    j = np.arange(A.nnz, dtype=np.int64) - A.offs[rows]
+    last[:nrows][full] = cols[offs[1:][full] - 1]
+    slot = torch.arange(n_stored, device=dev)
+    slot_row = (torch.repeat_interleave(
+        torch.arange(n_slices, device=dev), width * SLICE,
+        output_size=n_stored) * SLICE + slot % SLICE)
+    out = last[slot_row]
+    j = torch.arange(rows.numel(), device=dev) - offs[rows]
     pos = slice_off[rows // SLICE] + SLICE * j + rows % SLICE
-    cols[pos] = A.cols
-    return cols, slice_off, pos
+    out[pos] = cols
+    return out, slice_off, pos
 
 
-def _values(A: CsrMatrix, pos: np.ndarray, n_stored: int,
+def _values(vals: torch.Tensor, pos: torch.Tensor, n_stored: int,
             dtype: torch.dtype) -> torch.Tensor:
-    v = np.zeros(n_stored, dtype=_NP_DTYPES[dtype])
-    v[pos] = A.vals  # f32: each f64 value rounded once
-    return torch.from_numpy(v)
+    v = torch.zeros(n_stored, dtype=dtype, device=pos.device)
+    v[pos] = vals.to(dtype)  # f32 from f64: each value rounded once
+    return v
 
 
 def _validate(S: SellMatrix) -> None:

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels (`csrc/*.cu`).
 
 nvcc compiles each source into its own shared library with a plain C
-interface in `lsbench_tpu_torch/_build/`, at first use and again whenever
-the source or a shared header (`csrc/*.cuh`) is newer than its library;
-ctypes loads it. This takes seconds,
+interface in `lsbench_tpu_torch/_build/`, named by a hash of what it is
+built from (the source, the shared headers `csrc/*.cuh` and the nvcc
+flags), at first use; ctypes loads it. A library built from other source
+is never loaded under this source's `argtypes`, however new it is on
+disk. This takes seconds,
 where a PyTorch C++ extension that includes torch's headers takes minutes.
-`build()` starts one nvcc per stale source, all at once. Nothing here runs
+`build()` starts one nvcc per missing library, all at once. Nothing here runs
 at import: the CPU-only test environment has no nvcc.
 """
 
@@ -13,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import glob
+import hashlib
 import os
 import shutil
 import subprocess
@@ -36,9 +39,7 @@ SOURCES = {
                  ("lsb_spmv_bsr_f64acc", 5, 2),
                  ("lsb_spmm_bsr_f32", 4, 3)),
     "well_spmv": (("lsb_spmv_well_f32", 5, 3),),
-    "bsr_variants": (("lsb_spmv_bsr_compact_f32", 5, 1),
-                     ("lsb_spmv_bsr_selector_f32", 4, 3),
-                     ("lsb_spmv_bsr_onehot_f32", 4, 3)),
+    "bsr_variants": (("lsb_spmv_bsr_compact_f32", 5, 1),),
     "sell_spmv": (("lsb_spmv_sell_f32", 5, 1),
                   ("lsb_spmv_sell_f64", 5, 1)),
     "sell_spmm": (("lsb_spmm_sell_f32", 5, 2),),
@@ -53,7 +54,15 @@ def source_path(stem: str) -> str:
 
 
 def library_path(stem: str) -> str:
-    return os.path.join(BUILD_DIR, f"lib{stem}.so")
+    """`_build/lib<stem>-<hash8>.so`, the hash over the source, every
+    shared header (by name and content) and NVCC_FLAGS."""
+    h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+    for path in [source_path(stem),
+                 *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        h.update(os.path.basename(path).encode() + b"\0")
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:8]}.so")
 
 
 def _nvcc() -> str:
@@ -67,26 +76,20 @@ def _nvcc() -> str:
     return nvcc
 
 
-def _stale(stem: str) -> bool:
-    lib = library_path(stem)
-    inputs = [source_path(stem), *glob.glob(os.path.join(CSRC, "*.cuh"))]
-    return (not os.path.exists(lib)
-            or os.path.getmtime(lib) < max(map(os.path.getmtime, inputs)))
-
-
 def build(stems=None) -> str:
-    """Compile the named sources (default: all) whose library is missing or
-    stale, one nvcc each, run in parallel. Returns nvcc's output (ptxas
-    register and spill report), "" when every library was current. Raises if
-    a build fails."""
-    todo = [s for s in (stems or SOURCES) if _stale(s)]
+    """Compile the named sources (default: all) whose library is missing,
+    one nvcc each, run in parallel. Returns nvcc's output (ptxas register
+    and spill report), "" when every library was there. Raises if a build
+    fails."""
+    todo = [(s, lib) for s in (stems or SOURCES)
+            if not os.path.exists(lib := library_path(s))]
     if not todo:
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     jobs = []
     try:
-        for stem in todo:
+        for stem, lib in todo:
             # Private name, then rename: another process must never load a
             # half-written library.
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -94,20 +97,20 @@ def build(stems=None) -> str:
             proc = subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-o", tmp, source_path(stem)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            jobs.append((stem, tmp, proc))
+            jobs.append((stem, lib, tmp, proc))
         logs, failed = [], []
-        for stem, tmp, proc in jobs:
+        for stem, lib, tmp, proc in jobs:
             out, _ = proc.communicate(timeout=600)
             logs.append(f"[{stem}.cu]\n{out}")
             if proc.returncode != 0:
                 failed.append(f"nvcc {stem}.cu failed ({proc.returncode}):\n{out}")
             else:
-                os.replace(tmp, library_path(stem))
+                os.replace(tmp, lib)
         if failed:
             raise RuntimeError("\n".join(failed))
         return "".join(logs)
     finally:
-        for _, tmp, proc in jobs:
+        for _, _, tmp, proc in jobs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()

@@ -6,7 +6,7 @@ Counterpart of `lsbench_tpu/ops/spmv_pallas.py`, with its public signatures:
     spmv_bsr(A, x)                     K1  f32, uniform BsrMatrix
     spmv_bsr(A, x, variant="selector") K7  x gathered through A.sel
     spmv_bsr(A, x, variant="onehot")   K8  x gathered through a one-hot
-                                           built in the kernel
+                                           of A.block_cols
     spmv_bsr_classed(A, x)             K5  f32, class-padded BsrClassed
     spmv_bsr_df64(A, x)                K2  f64-accurate, BsrDf64 (hi, lo)
     spmv_bsr_df64_lo(A, blocks_lo, x)  K2  hi from the f32 BsrMatrix
@@ -15,11 +15,16 @@ Counterpart of `lsbench_tpu/ops/spmv_pallas.py`, with its public signatures:
 
 Dispatch: tensors on the CPU go to the `*_plain` version (gather + einsum,
 the JAX package's `matvec_reference`); tensors on one CUDA device launch
-the kernel (`csrc/bsr_spmv.cu`, `csrc/bsr_variants.cu` for K6–K8) or
-raise. There is no fallback from a CUDA tensor to the plain version. Each
-kernel launch adds one to its count in `LAUNCHES`, so a run can show that
-it went through the kernels. K6–K8 sit on no solver path, as in the JAX
-package: this API is their entry.
+the kernel (`csrc/bsr_spmv.cu`, `csrc/bsr_variants.cu` for K6) or raise.
+K7 and K8 on the card run the SELL f32 kernel (`csrc/sell_spmv.cu`) over
+the layout's packed form for their gather rule (`BsrMatrix.packed`): the
+TPU kernels' one-hot products only avoid scalar-indexed loads, which are a
+plain gather on Hopper, so the gather is resolved once per layout and the
+call streams the nonzeros alone, not the dense blocks. There is no
+fallback from a CUDA tensor to the plain version. Each kernel launch adds
+one to its count in `LAUNCHES`, so a run can show that it went through the
+kernels. K6–K8 sit on no solver path, as in the JAX package: this API is
+their entry.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 from lsbench_tpu_torch.matrix.bsr import (BC, BR, GPS, BsrClassed,
                                           BsrCompact, BsrDf64, BsrMatrix)
 from lsbench_tpu_torch.ops import _cuda  # builds nothing until first launch
+from lsbench_tpu_torch.ops import spmv_sell
 from lsbench_tpu_torch.utils.precision import full_f32
 
 LAUNCHES = {"bsr_f32": 0, "bsr_classed_f32": 0, "bsr_f64acc": 0,
@@ -95,14 +101,13 @@ def spmv_bsr(A: BsrMatrix, x: torch.Tensor,
     """y = A @ x (f32). x: (ncols,) → y: (nrows,). `variant` picks how the
     x rows are gathered: "auto"/"prefetch" by block column index (K1),
     "selector" through the one-hot selector `A.sel` (K7; built on first
-    use), "onehot" through a one-hot built in the kernel (K8)."""
+    use), "onehot" through the one-hot of `A.block_cols` (K8); on the card
+    both run over the layout's packed form (`BsrMatrix.packed`)."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown spmv_bsr variant '{variant}' (one of "
                          f"{', '.join(VARIANTS)})")
-    if variant == "selector":
-        return _spmv_bsr_selector(A.ensure_sel(), x)
-    if variant == "onehot":
-        return _spmv_bsr_onehot(A, x)
+    if variant in _GATHERS:
+        return _spmv_bsr_gather(A, x, variant)
     _check(A.blocks, "blocks", torch.float32,
            (A.n_groups, A.slots * BR, BC))
     _check(A.block_cols, "block_cols", torch.int32, (A.n_groups, A.slots))
@@ -137,24 +142,6 @@ def spmv_bsr_selector_plain(A: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
     return _slot_rows(A, g)
 
 
-def _spmv_bsr_selector(A: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
-    G, S, C = A.n_groups, A.slots, A.n_col_blocks
-    _check(A.blocks, "blocks", torch.float32, (G, S * BR, BC))
-    _check(A.sel, "sel", torch.float32, (G * S, C))
-    if _on_cpu(A.blocks, A.sel, x):
-        return spmv_bsr_selector_plain(A, x)
-    lib = _cuda.library("bsr_variants")
-    xt = _x_table(x, A.ncols, C, torch.float32)
-    y = torch.empty((G, BR), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.lsb_spmv_bsr_selector_f32(
-            A.sel.data_ptr(), xt.data_ptr(), A.blocks.data_ptr(),
-            y.data_ptr(), G, S, C, _stream(x.device))
-    _cuda.check(rc, "spmv_bsr_selector_f32")
-    LAUNCHES["bsr_selector_f32"] += 1
-    return y.view(-1)[: A.nrows]
-
-
 def spmv_bsr_onehot_plain(A: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch K8: the one-hot (G*S, C) of block_cols against the
     column iota, its product with the x table in full f32, then the slots
@@ -168,22 +155,34 @@ def spmv_bsr_onehot_plain(A: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
     return _slot_rows(A, g)
 
 
-def _spmv_bsr_onehot(A: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
-    G, S, C = A.n_groups, A.slots, A.n_col_blocks
+# Gather rule → (plain version, launch counter).
+_GATHERS = {"selector": (spmv_bsr_selector_plain, "bsr_selector_f32"),
+            "onehot": (spmv_bsr_onehot_plain, "bsr_onehot_f32")}
+
+
+def _spmv_bsr_gather(A: BsrMatrix, x: torch.Tensor, rule: str) -> torch.Tensor:
+    """K7 and K8. On the CPU the plain version, the JAX semantics. On a
+    CUDA device the SELL f32 kernel over the layout's packed form for
+    `rule` (`BsrMatrix.packed`: built on the first call, cached), x read in
+    place and checked alone, as `spmv_sell` does."""
+    plain, counter = _GATHERS[rule]
+    if x.is_cuda:
+        if A.blocks.device != x.device:
+            raise ValueError(f"BSR SpMV operands on {A.blocks.device} and "
+                             f"{x.device}: need one CUDA device")
+        P = A.packed(rule)
+        return spmv_sell.launch(P, P.vals, x, torch.float32, 1,
+                                "spmv_sell_f32", counter, LAUNCHES)
+    G, S = A.n_groups, A.slots
     _check(A.blocks, "blocks", torch.float32, (G, S * BR, BC))
-    _check(A.block_cols, "block_cols", torch.int32, (G, S))
-    if _on_cpu(A.blocks, A.block_cols, x):
-        return spmv_bsr_onehot_plain(A, x)
-    lib = _cuda.library("bsr_variants")
-    xt = _x_table(x, A.ncols, C, torch.float32)
-    y = torch.empty((G, BR), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.lsb_spmv_bsr_onehot_f32(
-            A.block_cols.data_ptr(), xt.data_ptr(), A.blocks.data_ptr(),
-            y.data_ptr(), G, S, C, _stream(x.device))
-    _cuda.check(rc, "spmv_bsr_onehot_f32")
-    LAUNCHES["bsr_onehot_f32"] += 1
-    return y.view(-1)[: A.nrows]
+    if rule == "selector":
+        gather = A.ensure_sel().sel
+        _check(gather, "sel", torch.float32, (G * S, A.n_col_blocks))
+    else:
+        gather = A.block_cols
+        _check(gather, "block_cols", torch.int32, (G, S))
+    _on_cpu(A.blocks, gather, x)  # x is off CUDA: raises unless all on CPU
+    return plain(A, x)
 
 
 # ----------------------------------------------- K6: exact-block f32

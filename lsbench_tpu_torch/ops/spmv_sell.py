@@ -25,7 +25,8 @@ Dispatch: x on the CPU with the layout on the CPU runs the plain version;
 x on the layout's CUDA device launches the kernel; anything else raises.
 There is no fallback from a CUDA tensor to the plain version. Each launch
 adds one to `LAUNCHES["sell_f32"]`, `LAUNCHES["sell_f64"]` or
-`LAUNCHES["sell_mm_f32"]`.
+`LAUNCHES["sell_mm_f32"]`; the BSR K7 and K8 (`ops/spmv_bsr.py`) run the
+f32 kernel on their packed layouts through `launch` and count there.
 """
 
 from __future__ import annotations
@@ -74,11 +75,13 @@ def spmm_sell_plain(S: SellMatrix, X: torch.Tensor) -> torch.Tensor:
     return _plain(S, S.vals, X)
 
 
-def _launch(S: SellMatrix, vals, x: torch.Tensor, dtype: torch.dtype,
-            ndim: int, name: str, counter: str) -> torch.Tensor:
+def launch(S: SellMatrix, vals, x: torch.Tensor, dtype: torch.dtype,
+           ndim: int, name: str, counter: str,
+           counts: dict = LAUNCHES) -> torch.Tensor:
     """Check x, (ncols,) for the SpMV or (ncols, k) with k >= 1 for the
     SpMM, then run the plain version (CPU) or launch the kernel `name` (x on
-    the layout's CUDA device); y has x's shape with nrows rows."""
+    the layout's CUDA device) and add one to `counts[counter]`; y has x's
+    shape with nrows rows."""
     if vals is None:
         raise ValueError(f"{name}: the SELL layout holds no {dtype} values")
     if x.dtype != dtype:
@@ -101,7 +104,7 @@ def _launch(S: SellMatrix, vals, x: torch.Tensor, dtype: torch.dtype,
     _cuda.launch(_cuda.entry(_STEM[name], name), name, dev,
                  vals.data_ptr(), S.cols.data_ptr(), S.slice_off.data_ptr(),
                  x.data_ptr(), y.data_ptr(), S.nrows, *k)
-    LAUNCHES[counter] += 1
+    counts[counter] += 1
     return y
 
 
@@ -111,18 +114,18 @@ _STEM = {"spmv_sell_f32": "sell_spmv", "spmv_sell_f64": "sell_spmv",
 
 def spmv_sell(S: SellMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A·x in f32: x (ncols,) f32 → y (nrows,) f32."""
-    return _launch(S, S.vals, x, torch.float32, 1, "spmv_sell_f32",
-                   "sell_f32")
+    return launch(S, S.vals, x, torch.float32, 1, "spmv_sell_f32",
+                  "sell_f32")
 
 
 def spmv_sell_f64(S: SellMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A·x in f64: x (ncols,) f64 → y (nrows,) f64."""
-    return _launch(S, S.vals64, x, torch.float64, 1, "spmv_sell_f64",
-                   "sell_f64")
+    return launch(S, S.vals64, x, torch.float64, 1, "spmv_sell_f64",
+                  "sell_f64")
 
 
 def spmm_sell(S: SellMatrix, X: torch.Tensor) -> torch.Tensor:
     """Y = A·X in f32 for k right-hand sides: X (ncols, k) f32, row-major
     and contiguous, k >= 1 → Y (nrows, k) f32."""
-    return _launch(S, S.vals, X, torch.float32, 2, "spmm_sell_f32",
-                   "sell_mm_f32")
+    return launch(S, S.vals, X, torch.float32, 2, "spmm_sell_f32",
+                  "sell_mm_f32")

@@ -5,6 +5,8 @@ CSR matvec. The CUDA kernels themselves are compared with the plain
 versions by the `cuda`-marked test below, on a card."""
 
 import os
+import re
+import shutil
 import subprocess
 import sys
 
@@ -153,6 +155,35 @@ def test_ops_import_builds_nothing(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == str(existed)
+
+
+def test_library_path_keys_by_content(tmp_path, monkeypatch):
+    """Each kernel library is named by what it is built from: a copy of the
+    sources gives the same path, and a change to the source, to a shared
+    header or to the nvcc flags gives another (nvcc is not run)."""
+    from lsbench_tpu_torch.ops import _cuda
+    src = tmp_path / "csrc"
+    shutil.copytree(_cuda.CSRC, src)
+    p0, b0 = _cuda.library_path("sell_spmv"), _cuda.library_path("bsr_spmv")
+    assert re.fullmatch(r"libsell_spmv-[0-9a-f]{8}\.so", os.path.basename(p0))
+    assert os.path.dirname(p0) == _cuda.BUILD_DIR
+    monkeypatch.setattr(_cuda, "CSRC", str(src))
+    assert _cuda.library_path("sell_spmv") == p0
+    cu = src / "sell_spmv.cu"
+    text = cu.read_text()
+    cu.write_text(text + "// another build\n")
+    p1 = _cuda.library_path("sell_spmv")
+    assert p1 != p0 and _cuda.library_path("bsr_spmv") == b0
+    cu.write_text(text)
+    assert _cuda.library_path("sell_spmv") == p0
+    cuh = src / "bsr_common.cuh"
+    header = cuh.read_text()
+    cuh.write_text(header + "// changed\n")
+    assert _cuda.library_path("sell_spmv") not in (p0, p1)
+    cuh.write_text(header)
+    assert _cuda.library_path("sell_spmv") == p0
+    monkeypatch.setattr(_cuda, "NVCC_FLAGS", [*_cuda.NVCC_FLAGS, "-G"])
+    assert _cuda.library_path("sell_spmv") not in (p0, p1)
 
 
 @pytest.fixture

@@ -6,7 +6,9 @@ On the CPU the plain PyTorch versions are held to the JAX Pallas kernels in
 interpret mode (exact f32, K8's intended result) and to the host f64 CSR
 matvec, at 1e-5 relative to (1 + |y|) (f32 sums in another order); layouts
 must match the JAX arrays bit for bit. The CUDA kernels are held to their
-plain versions by the `cuda`-marked tests, on a card."""
+plain versions by the `cuda`-marked tests, on a card; K7 and K8 there run
+the SELL f32 kernel over the layout's packed forms (`tests/test_torch_pack.py`
+holds those forms on the CPU), so they also give `spmv_sell`'s bits."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +23,9 @@ from lsbench_tpu.ordering.rcm import rcm_ordering as j_rcm
 
 from lsbench_tpu_torch.matrix import bsr as tbsr
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
+from lsbench_tpu_torch.matrix.sell import SellMatrix
 from lsbench_tpu_torch.ops import spmv_bsr as ops
+from lsbench_tpu_torch.ops import spmv_sell
 
 CPU = torch.device("cpu")
 
@@ -302,6 +306,7 @@ def test_variant_kernels_match_plain_on_card(case, cuda_device):
                         device=cuda_device)
     ref = A.matvec(x.double().cpu().numpy())
     before = dict(ops.LAUNCHES)
+    sell_before = spmv_sell.LAUNCHES["sell_f32"]
     for kern, plain in (
             (ops.spmv_bsr_compact(C, x), ops.spmv_bsr_compact_plain(C, x)),
             (ops.spmv_bsr(B, x, variant="selector"),
@@ -316,5 +321,14 @@ def test_variant_kernels_match_plain_on_card(case, cuda_device):
         assert host <= 2e-5 * max(np.abs(ref).max(), 1e-30)
     for k in ("bsr_compact_f32", "bsr_selector_f32", "bsr_onehot_f32"):
         assert ops.LAUNCHES[k] == before[k] + 1
+    # K7 and K8 count under their own names, not under the SELL kernel's.
+    assert spmv_sell.LAUNCHES["sell_f32"] == sell_before
     # K6 walks sorted ranges with no atomics: bitwise repeatable.
     assert torch.equal(ops.spmv_bsr_compact(C, x), ops.spmv_bsr_compact(C, x))
+    # K7 and K8 run the SELL f32 kernel over a packed form equal to the
+    # CSR's SELL layout: spmv_sell's result bit for bit, and repeatable.
+    ref_y = spmv_sell.spmv_sell(SellMatrix.from_csr(A, device=cuda_device), x)
+    for variant in ("selector", "onehot"):
+        y = ops.spmv_bsr(B, x, variant=variant)
+        assert torch.equal(y, ref_y)
+        assert torch.equal(y, ops.spmv_bsr(B, x, variant=variant))
