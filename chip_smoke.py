@@ -62,18 +62,20 @@ Phases, each of which raises (exit code 1) on failure:
    of each other, and the CPU run launches nothing.
 9. Alternate SpMV kernels K6 (exact-block `spmv_bsr_compact`), K7
    (`spmv_bsr(variant="selector")`) and K8 (`variant="onehot"`), which no
-   solver path runs. K7 and K8 run the SELL f32 kernel over the uniform
-   layout's packed form for their gather rule, built once per layout
-   (`pack_ms`). First their API path (each public entry called once on
-   RCM poisson_2d(512) and random_spd(6408, 23), each result within
+   solver path runs. Each runs the SELL f32 kernel over its layout's
+   packed form (K6: `BsrCompact.packed`; K7 and K8: the uniform layout's
+   for their gather rule), built once per layout (`pack_ms`, first and
+   again). First their API path (each public entry called once on RCM
+   poisson_2d(512) and random_spd(6408, 23), each result within
    2e-5·max|y| of the host f64 CSR matvec, none counted as `sell_f32`),
    then each kernel against its plain version (within 1e-5·max|y|) with
-   the median CUDA-event times, bounds and cuSPARSE's time; K7 and K8 also
-   bit for bit `spmv_sell` on `SellMatrix.from_csr` of the same matrix,
+   the median CUDA-event times, bounds and cuSPARSE's time; each also bit
+   for bit `spmv_sell` on `SellMatrix.from_csr` of the same matrix,
    bitwise repeatable, one SELL kernel and no other device work per call
-   (profiler), with their host ms per call, profiler device ms L2-warm and
+   (profiler), with its host ms per call, profiler device ms L2-warm and
    L2-cold beside `spmv_sell`'s on the same operator, the packed layout's
-   bound and the dense design's. The 1.34 GB selector is freed after it.
+   bytes and bound and the dense design's. The 1.34 GB selector is freed
+   after it.
 10. The XLA-only layouts through the CLI: `cg_ir --opt layout=ell` on
    poisson_2d(512) (true relres ≤ 1e-10 through the f64 SELL product, with
    no K1, K5 or SELL f32 launch) and fp64 `cg --opt layout=bsr_xla` on
@@ -105,6 +107,19 @@ Phases, each of which raises (exit code 1) on failure:
    factor): `torch.linalg.cholesky` in f64, two f64 triangular solves and
    two refinement passes, against `cholesky_ir` factor-once and refactor;
    true relres, factor and solve seconds of each.
+14. GMRES and the block-Jacobi and Chebyshev preconditioners through the
+   CLI, RCM, at full width: `gmres --precond amg_classical` on
+   poisson_2d(512) (fp64, delegated to gmres_ir: `fp64(fp32_ir_auto)`,
+   through the SELL f32 kernel, K4 and the SELL f64 kernel), `gmres` on
+   random_spd(6408, 23) (Jacobi, `fp64(fp32_ir_auto)`), the same at
+   `--precision fp32` (f32 GMRES on the SELL f32 kernel, held to its rtol
+   1e-5, no f64 launch), and `cg_ir --precond chebyshev` and `--precond
+   block_jacobi` on poisson_2d(512); each to true relres ≤ 1e-10 (the
+   fp32 one ≤ 1e-5), with no BSR kernel launch.
+15. Native FP64 GMRES against `gmres_ir` on RCM random_spd(6408, 23)
+   (not a path: fp64 `gmres` delegates to `gmres_ir`): `gmres_loop` in
+   f64 on `spmv_sell_f64`, true relres, inner iterations and solve
+   seconds of each.
 
 Each path's launch counts are read from counters set to 0 just before it.
 Beside each kernel's times the record carries the bound of its function
@@ -137,7 +152,6 @@ import numpy as np
 
 BSR_SOURCE = "lsbench_tpu_torch/csrc/bsr_spmv.cu"
 WELL_SOURCE = "lsbench_tpu_torch/csrc/well_spmv.cu"
-VARIANTS_SOURCE = "lsbench_tpu_torch/csrc/bsr_variants.cu"
 SELL_SOURCE = "lsbench_tpu_torch/csrc/sell_spmv.cu"
 SELL_SPMM_SOURCE = "lsbench_tpu_torch/csrc/sell_spmm.cu"
 # Kernel name → (launch counter, source, TPU kernel it replaces).
@@ -152,9 +166,9 @@ KERNELS = {
                       "lsbench_tpu/ops/interp_pallas.py:139"),
     "spmm_bsr_f32": ("bsr_mm_f32", BSR_SOURCE,
                      "lsbench_tpu/ops/spmv_pallas.py:255"),
-    "spmv_bsr_compact_f32": ("bsr_compact_f32", VARIANTS_SOURCE,
+    # K6, K7 and K8: the SELL f32 kernel over the layouts' packed forms.
+    "spmv_bsr_compact_f32": ("bsr_compact_f32", SELL_SOURCE,
                              "lsbench_tpu/ops/spmv_pallas.py:543"),
-    # K7 and K8: the SELL f32 kernel over the layout's packed forms.
     "spmv_bsr_selector_f32": ("bsr_selector_f32", SELL_SOURCE,
                               "lsbench_tpu/ops/spmv_pallas.py:135"),
     "spmv_bsr_onehot_f32": ("bsr_onehot_f32", SELL_SOURCE,
@@ -183,7 +197,12 @@ PATHS = ("cg_ir poisson_2d(512) + random_spd(6408,23)",
          "cholmod --ordering amd poisson_2d(512)",
          "sparse_cholesky --opt schedule=block --ordering amd poisson_2d(512)",
          "cholmod --nrhs 8 random_spd(6408,23)",
-         "cholmod poisson_2d(64)")
+         "cholmod poisson_2d(64)",
+         "gmres --precond amg_classical poisson_2d(512)",
+         "gmres random_spd(6408,23)",
+         "gmres --precision fp32 random_spd(6408,23)",
+         "cg_ir --precond chebyshev poisson_2d(512)",
+         "cg_ir --precond block_jacobi poisson_2d(512)")
 # H100 SXM data sheet: HBM3 rate, and peak rates outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
@@ -1226,9 +1245,10 @@ def variant_kernels_phase(matrices) -> tuple[dict, dict]:
     """K6, K7 and K8 on the RCM layouts of both matrices. Returns the record
     entries (times at poisson_2d(512)) and the launch counts of the API
     path: one call of each public entry per matrix, counters set to 0 just
-    before and read just after. K7 and K8 run the SELL f32 kernel over the
-    layout's packed form for their gather rule, built once per layout
-    (`pack_ms`) before the API path."""
+    before and read just after. Each runs the SELL f32 kernel over its
+    layout's packed form (K6: the exact blocks', `BsrCompact.packed`; K7
+    and K8: the uniform layout's for their gather rule), built once per
+    layout (`pack_ms`) before the API path."""
     import torch
 
     from lsbench_tpu_torch.matrix.bsr import BsrCompact, BsrMatrix
@@ -1240,8 +1260,13 @@ def variant_kernels_phase(matrices) -> tuple[dict, dict]:
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(2)
-    rules = {"spmv_bsr_selector_f32": "selector",
-             "spmv_bsr_onehot_f32": "onehot"}
+    # kernel → (layout index in `layouts[label]`, its packed form, what
+    # the pack reads)
+    packs = {
+        "spmv_bsr_compact_f32": (2, lambda C: C.packed(), "exact blocks"),
+        "spmv_bsr_selector_f32": (1, lambda B: B.packed("selector"),
+                                  "selector"),
+        "spmv_bsr_onehot_f32": (1, lambda B: B.packed("onehot"), "onehot")}
     layouts, pack_ms = {}, {}
     for label, A in matrices.items():
         P = A.permuted(rcm_ordering(A))
@@ -1250,17 +1275,18 @@ def variant_kernels_phase(matrices) -> tuple[dict, dict]:
         C = BsrCompact.from_csr(P, device=dev)
         torch.cuda.synchronize()
         built_s = time.perf_counter() - t0
-        for name, rule in rules.items():
+        for name, (idx, pack, what) in packs.items():
             # The first pack of the process, then the same pack again on a
             # copy of the layout (`.to` starts an empty cache).
             times = []
-            for layout in (B, B.to(dev)):
+            layout = (None, B, C)[idx]
+            for lay in (layout, layout.to(dev)):
                 t0 = time.perf_counter()
-                packed = layout.packed(rule)
+                packed = pack(lay)
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
             pack_ms[label, name] = times
-            print(f"pack {rule} {label} RCM: n_stored={packed.n_stored} "
+            print(f"pack {what} {label} RCM: n_stored={packed.n_stored} "
                   f"nnz={packed.nnz} in {times[0]:.2f} ms (again "
                   f"{times[1]:.2f} ms)")
         x_np = rng.standard_normal(P.ncols)
@@ -1291,7 +1317,7 @@ def variant_kernels_phase(matrices) -> tuple[dict, dict]:
         check(api_counts[KERNELS[name][0]] == len(layouts),
               f"{name}: API path launches {api_counts}")
     check(api_counts["sell_f32"] == 0,
-          f"K7/K8 counted under sell_f32: {api_counts}")
+          f"K6/K7/K8 counted under sell_f32: {api_counts}")
     host_errs = {}
     for (label, name), y in api_out.items():
         P, x_np = layouts[label][0], layouts[label][3]
@@ -1322,8 +1348,8 @@ def variant_kernels_phase(matrices) -> tuple[dict, dict]:
         lib = library_ms(P, torch.float32, x)
         io_bytes = (P.ncols + P.nrows) * 4
         b_ms, b_by = function_bound(P, 4, "f32")
-        # spmv_sell on the CSR's own SELL layout: K7 and K8 must give its
-        # bits, and are timed beside it on the same operator.
+        # spmv_sell on the CSR's own SELL layout: K6, K7 and K8 must give
+        # its bits, and are timed beside it on the same operator.
         R = SellMatrix.from_csr(P, device=dev)
         y_sell = spmv_sell.spmv_sell(R, x)
         y_buf = torch.empty(P.nrows, dtype=torch.float32, device=dev)
@@ -1337,9 +1363,12 @@ def variant_kernels_phase(matrices) -> tuple[dict, dict]:
               f"{sell_ms:.4f} ms (host {sell_host_ms:.4f} ms per call), "
               f"device (profiler) L2-warm {_fmt(sell_warm)} ms, L2-cold "
               f"{_fmt(sell_cold)} ms")
-        # What K7 and K8 streamed per call before they ran on the packed
-        # layout: the dense blocks and the selector or block_cols.
+        # What K6, K7 and K8 streamed per call before they ran on the
+        # packed layout: the dense blocks and their block ids (K6: bcols
+        # and one range offset per row group) or the selector.
         earlier = {
+            "spmv_bsr_compact_f32": (C.bytes_streamed + 4 * (
+                C.bcols.numel() + C.n_groups + 1), "exact blocks"),
             "spmv_bsr_selector_f32": (B.bytes_streamed + B.sel.numel() * 4,
                                       "uniform + selector"),
             "spmv_bsr_onehot_f32": (B.bytes_streamed
@@ -1359,49 +1388,45 @@ def variant_kernels_phase(matrices) -> tuple[dict, dict]:
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
             times = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, library_ms=lib)
-            if name == "spmv_bsr_compact_f32":
-                nbytes = (C.bytes_streamed
-                          + 4 * (C.bcols.numel() + C.goff.numel()))
-                kind, extra = "compact", ""
-            else:
-                check(torch.equal(y_k, y_sell), f"{name} [{label}]: not "
-                      "spmv_sell(SellMatrix.from_csr(P), x) bit for bit")
-                check(torch.equal(y_k, y_again),
-                      f"{name} [{label}]: not bitwise repeatable")
-                S = B.packed(rules[name])
-                nbytes, kind = sell_bytes(S), f"packed {rules[name]}"
-                host_ms = host_call_ms(lambda: fn(op, x))
-                args = sell_args(S, x, y_buf)
-                warm = profiled_kernel_ms(sell_fn, args,
-                                          "spmv_sell_f32_kernel")
-                cold = profiled_kernel_ms(sell_fn, args,
-                                          "spmv_sell_f32_kernel", flush)
-                # One launch per call is the counter's to show (the API
-                # path); the trace shows that nothing else runs on the card
-                # (no fill, no copy). It may miss some of the launches.
-                per_call = wrapper_device_ops(lambda: fn(op, x))
-                check(set(per_call) <= {"spmv_sell_f32_kernel"},
-                      f"{name} [{label}]: device work per call {per_call}")
-                was, was_kind = earlier[name]
-                lay_ms = layout_bound_ms(nbytes + io_bytes)
-                first, again = pack_ms[label, name]
-                times.update(pack_ms=first, pack_again_ms=again,
-                             wrapper_host_ms=host_ms, device_ms_l2_warm=warm,
-                             device_ms_l2_cold=cold, layout_bound_ms=lay_ms,
-                             device_ops_per_call=per_call,
-                             sell_same_operator={
-                                 "ms": sell_ms, "wrapper_host_ms": sell_host_ms,
-                                 "device_ms_l2_warm": sell_warm,
-                                 "device_ms_l2_cold": sell_cold})
-                ratio = (f"{warm / sell_warm:.3f}" if warm and sell_warm
-                         else "n/a")
-                extra = (f"; pack {first:.2f} ms (again {again:.2f}), host "
-                         f"{host_ms:.4f} ms per call, device (profiler) "
-                         f"L2-warm {_fmt(warm)} ms ({ratio}x spmv_sell's), "
-                         f"L2-cold {_fmt(cold)} ms, device work per call "
-                         f"{per_call}, wrapper {ms / lib:.3f}x cuSPARSE; "
-                         f"earlier design {was} B ({was_kind}): layout "
-                         f"bound {layout_bound_ms(was + io_bytes):.4f} ms")
+            check(torch.equal(y_k, y_sell), f"{name} [{label}]: not "
+                  "spmv_sell(SellMatrix.from_csr(P), x) bit for bit")
+            check(torch.equal(y_k, y_again),
+                  f"{name} [{label}]: not bitwise repeatable")
+            S = packs[name][1](op)
+            nbytes, kind = sell_bytes(S), f"packed {packs[name][2]}"
+            host_ms = host_call_ms(lambda: fn(op, x))
+            args = sell_args(S, x, y_buf)
+            warm = profiled_kernel_ms(sell_fn, args, "spmv_sell_f32_kernel")
+            cold = profiled_kernel_ms(sell_fn, args, "spmv_sell_f32_kernel",
+                                      flush)
+            # One launch per call is the counter's to show (the API
+            # path); the trace shows that nothing else runs on the card
+            # (no fill, no copy). It may miss some of the launches.
+            per_call = wrapper_device_ops(lambda: fn(op, x))
+            check(set(per_call) <= {"spmv_sell_f32_kernel"},
+                  f"{name} [{label}]: device work per call {per_call}")
+            was, was_kind = earlier[name]
+            lay_ms = layout_bound_ms(nbytes + io_bytes)
+            first, again = pack_ms[label, name]
+            times.update(pack_ms=first, pack_again_ms=again,
+                         wrapper_host_ms=host_ms, device_ms_l2_warm=warm,
+                         device_ms_l2_cold=cold, layout_bound_ms=lay_ms,
+                         layout_bytes=nbytes, earlier_design_bytes=was,
+                         device_ops_per_call=per_call,
+                         sell_same_operator={
+                             "ms": sell_ms,
+                             "wrapper_host_ms": sell_host_ms,
+                             "device_ms_l2_warm": sell_warm,
+                             "device_ms_l2_cold": sell_cold})
+            ratio = (f"{warm / sell_warm:.3f}" if warm and sell_warm
+                     else "n/a")
+            extra = (f"; pack {first:.2f} ms (again {again:.2f}), host "
+                     f"{host_ms:.4f} ms per call, device (profiler) "
+                     f"L2-warm {_fmt(warm)} ms ({ratio}x spmv_sell's), "
+                     f"L2-cold {_fmt(cold)} ms, device work per call "
+                     f"{per_call}, wrapper {ms / lib:.3f}x cuSPARSE; "
+                     f"earlier design {was} B ({was_kind}): layout "
+                     f"bound {layout_bound_ms(was + io_bytes):.4f} ms")
             print(f"kernel {name} [{label} RCM {kind}]: max_abs_err="
                   f"{err:.3e} (tol {tol:.3e}) host_err="
                   f"{host_errs[label, name]:.3e} wrapper {ms:.4f} ms "
@@ -1650,12 +1675,132 @@ def fp64_direct_measurement(A) -> dict:
     return out
 
 
+def krylov_paths_phase(tmp: str, matrices) -> list[dict]:
+    """GMRES and the block-Jacobi and Chebyshev preconditioners through the
+    CLI, each with RCM at full width: `gmres --precond amg_classical` on
+    poisson_2d(512) (fp64, delegated to gmres_ir: SELL f32 and K4 in the
+    V-cycle, SELL f64 residual), `gmres` on random_spd(6408,23) (Jacobi)
+    at fp64 and at fp32 (its own bar: the f32 rtol it is given), and
+    `cg_ir --precond chebyshev` and `--precond block_jacobi` on
+    poisson_2d(512). Returns each path's launch counts."""
+    from lsbench_tpu_torch.matrix.io import write_matrix
+
+    files = {}
+    for label, A in matrices.items():
+        files[label] = os.path.join(tmp, label.split("(")[0] + "_krylov.txt")
+        write_matrix(A, files[label])
+    runs = (  # (label, matrix, argv, precision, rtol, kernels that must run)
+        ("gmres amg_classical", "poisson_2d(512)",
+         ["--solver", "gmres", "--precond", "amg_classical"],
+         "fp64(fp32_ir_auto)", 1e-10, ("sell_f32", "well_f32", "sell_f64")),
+        ("gmres", "random_spd(6408,23)", ["--solver", "gmres"],
+         "fp64(fp32_ir_auto)", 1e-10, ("sell_f32", "sell_f64")),
+        ("gmres --precision fp32", "random_spd(6408,23)",
+         ["--solver", "gmres", "--precision", "fp32"], "fp32", 1e-5,
+         ("sell_f32",)),
+        ("cg_ir chebyshev", "poisson_2d(512)",
+         ["--solver", "cg_ir", "--precond", "chebyshev"], "fp64", 1e-10,
+         ("sell_f32", "sell_f64")),
+        ("cg_ir block_jacobi", "poisson_2d(512)",
+         ["--solver", "cg_ir", "--precond", "block_jacobi"], "fp64", 1e-10,
+         ("sell_f32", "sell_f64")))
+    counts = []
+    for label, matrix, argv, precision, rtol, expect in runs:
+        t0 = time.perf_counter()
+        rec, ran, wall = cli_path(
+            f"{label} {matrix}", files[matrix],
+            [*argv, "--ordering", "rcm", "--rtol", str(rtol), "--trials",
+             "2", "--warmups", "1", "--json"])
+        check(rec["solver"] == argv[1], f"{label} {matrix}: solver "
+                                        f"{rec['solver']}")
+        check(rec["precision"] == precision,
+              f"{label} {matrix}: precision {rec['precision']}")
+        check(rec["converged"] is True and rec["true_relres"] <= rtol,
+              f"{label} {matrix}: converged {rec['converged']} true_relres "
+              f"{rec['true_relres']:.3e} > {rtol}")
+        for k in expect:
+            check(ran[k] > 0, f"{label} {matrix}: kernel {k} never "
+                              f"launched {ran}")
+        check(ran["bsr_f32"] == ran["bsr_classed_f32"] == 0,
+              f"{label} {matrix}: a BSR kernel launched {ran}")
+        if precision == "fp32":
+            check(ran["sell_f64"] == 0, f"{label}: f64 residual at fp32 {ran}")
+        bd = rec["setup_breakdown"]
+        print(f"{label} path {matrix}: iters={rec['iters']} "
+              f"passes={rec.get('refine_passes')} precision="
+              f"{rec['precision']} true_relres={rec['true_relres']:.3e} "
+              f"setup_s={rec['setup_s']:.3f} (precond_s="
+              f"{bd.get('precond_s', float('nan')):.3f}) solve_s="
+              f"{rec['solve_s']:.4f} first_call_s={rec['first_call_s']:.3f} "
+              f"cli_wall_s={wall:.2f} launches={ran} "
+              f"phase_s={time.perf_counter() - t0:.2f}")
+        counts.append(ran)
+    return counts
+
+
+def fp64_gmres_measurement(A) -> dict:
+    """Native FP64 GMRES against `gmres_ir` on random_spd(6408,23), RCM,
+    Jacobi, rtol 1e-10, b[i] = i: `gmres_loop` in f64 on `spmv_sell_f64`
+    called directly (no solver takes this route: fp64 `gmres` delegates to
+    `gmres_ir`), against `GmresIrSolver` (f32 GMRES on `spmv_sell` + the
+    f64 residual). Returns each one's true relres, inner iterations and
+    median solve seconds."""
+    import torch
+
+    from lsbench_tpu_torch.matrix.sell import SellMatrix
+    from lsbench_tpu_torch.ops.spmv_sell import spmv_sell_f64
+    from lsbench_tpu_torch.ordering import rcm_ordering
+    from lsbench_tpu_torch.solvers.gmres import gmres_loop, max_restarts_for
+    from lsbench_tpu_torch.solvers.preconditioners import jacobi_precond
+    from lsbench_tpu_torch.solvers.refine import GmresIrSolver
+
+    dev = torch.device("cuda")
+    P = A.permuted(rcm_ordering(A))
+    b_np = np.arange(P.nrows, dtype=np.float64)
+    b = torch.as_tensor(b_np, device=dev)
+
+    def relres(x):
+        return float(np.linalg.norm(b_np - P.matvec(x.cpu().numpy()))
+                     / np.linalg.norm(b_np))
+
+    def wall(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return out, float(np.median(times))
+
+    S = SellMatrix.from_csr(P, dtypes=(torch.float64,), device=dev)
+    pstate, papply = jacobi_precond(P, torch.float64, dev)
+    cap = max_restarts_for(P, None, 30)
+    (x, iters, _, _), solve_s = wall(lambda: gmres_loop(
+        lambda v: spmv_sell_f64(S, v), lambda r: papply(pstate, r), b,
+        1e-10, cap, 30, torch.float64))
+    out = {"native fp64 gmres_loop": dict(true_relres=relres(x),
+                                          iters=iters, solve_s=solve_s)}
+    s = GmresIrSolver(P, rtol=1e-10, device=dev)
+    res, solve_s = wall(lambda: s.solve(b))
+    out["gmres_ir"] = dict(true_relres=relres(res.x), iters=res.iters,
+                           refine_passes=res.extra["refine_passes"],
+                           solve_s=solve_s)
+    for label, m in out.items():
+        print(f"fp64 gmres vs gmres_ir [{label}]: "
+              + " ".join(f"{k}={v:.4e}" if isinstance(v, float) else
+                         f"{k}={v}" for k, v in m.items()))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     import lsbench_tpu_torch  # noqa: F401  (fails here, before any output, outside the repo)
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     card = card_line()
     print(f"card: {card}  driver {card_line('driver_version')}  torch "
@@ -1703,6 +1848,14 @@ def main() -> int:
     fp64 = fp64_direct_measurement(matrices["random_spd(6408,23)"])
     print("fp64 vs f32+IR: " + json.dumps(fp64))
     print(f"phase fp64 vs f32+IR: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path_counts += krylov_paths_phase(tmp, matrices)
+    print(f"phase krylov paths: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    fp64 = fp64_gmres_measurement(matrices["random_spd(6408,23)"])
+    print("fp64 gmres vs gmres_ir: " + json.dumps(fp64))
+    print(f"phase fp64 gmres vs gmres_ir: {time.perf_counter() - t0:.2f} s")
     check(len(path_counts) == len(PATHS), "one launch count per path")
 
     kernels = []
@@ -1724,11 +1877,14 @@ def main() -> int:
                                              "device_ms_l2_cold",
                                              "pack_ms", "pack_again_ms",
                                              "layout_bound_ms",
+                                             "layout_bytes",
+                                             "earlier_design_bytes",
                                              "device_ops_per_call",
                                              "random_spd(6408,23)",
                                              "amg_level1_a",
                                              "sell_same_operator")
                            if k in m}})
+    print(f"total: {time.perf_counter() - t_start:.2f} s")
     print("paths: " + json.dumps(PATHS))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-// Shared by the BSR kernels (bsr_spmv.cu, bsr_variants.cu): the layout's
+// Shared by the BSR kernels (bsr_spmv.cu): the layout's
 // constants and the cross-lane reduction of one row group's partials.
 //
 // One CUDA block of kLanes = 128 threads walks one row group; thread c owns

@@ -43,6 +43,9 @@ _NOT_PORTED = (("devices", "--devices"), ("mesh", "--mesh"),
                ("cache", "--cache"), ("cache_dir", "--cache-dir"),
                ("coordinator", "--coordinator"),
                ("debug_nans", "--debug-nans"))
+# Solvers of the JAX package's registry that are not ported yet: refused,
+# where an unknown name would fall back to the default solver.
+_NOT_PORTED_SOLVERS = ("cholesky_band",)
 
 
 # The reference defaults to its CHOLMOD backend (CMakeLists.txt:5): here the
@@ -68,7 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--maxiter", type=int, default=None)
     p.add_argument("--precond", default=None,
                    help="override preconditioner "
-                        "(none|jacobi|amg|amg_classical)")
+                        "(none|jacobi|block_jacobi|chebyshev|amg|"
+                        "amg_classical)")
     p.add_argument("--nrhs", type=int, default=1,
                    help="solve this many right-hand sides at once (cg "
                         "family routes to block_cg, bicgstab/ginkgo to "
@@ -156,6 +160,10 @@ def main(argv=None) -> int:
         return 1
     device = torch.device(platform)
 
+    if args.solver is not None and args.solver.lower() in _NOT_PORTED_SOLVERS:
+        print(f"solver '{args.solver}' is not yet ported to "
+              "lsbench_tpu_torch (see ROADMAP.md).", file=sys.stderr)
+        return 1
     solver_name = _resolve_solver_name(args.solver)
     ordering = _resolve_ordering(args.ordering)
 
@@ -196,7 +204,8 @@ def main(argv=None) -> int:
                   f"(block_cg), bicgstab/ginkgo (batched BiCGSTAB), and "
                   f"the Cholesky family (cholmod/cusolver/cholesky_ir: "
                   f"one product or two triangular solves for all columns "
-                  f"per refinement pass); got '{solver_name}'.",
+                  f"per refinement pass); got '{solver_name}' (for gmres "
+                  f"run one RHS per solve).",
                   file=sys.stderr)
             return 1
 
@@ -205,7 +214,7 @@ def main(argv=None) -> int:
         # Remap the resolved target (so alias presets such as ginkgo's
         # rtol=1e-4/jacobi survive) onto its iterative-refinement twin.
         ir_map = {"cg": "cg_ir", "cholesky": "cholesky_ir",
-                  "bicgstab": "bicgstab_ir"}
+                  "gmres": "gmres_ir", "bicgstab": "bicgstab_ir"}
         target = ir_map.get(cls.name, cls.name)
         if target not in ("block_cg", "batched_bicgstab") \
                 and not target.endswith("_ir"):
@@ -213,7 +222,7 @@ def main(argv=None) -> int:
             # mode as f32 cycles + f64 refinement already; block_cg and
             # batched_bicgstab are their own IR form.
             print(f"Precision 'fp32_ir' is only implemented for the cg, "
-                  f"cholesky and bicgstab solver families (got "
+                  f"cholesky, gmres, and bicgstab solver families (got "
                   f"'{solver_name}').",
                   file=sys.stderr)
             return 1

@@ -3,10 +3,12 @@
     python -m lsbench_tpu_torch.harness.profile_solve [--out FILE]
 
 For each case (RCM-ordered poisson_2d(512) and random_spd(6408, 23) with
-the Jacobi preconditioner, and poisson_2d(512) with `amg_classical`; cg_ir,
-rtol 1e-10, b[i] = i; then block CG (rtol 1e-10) and batched BiCGSTAB
-(`ginkgo`'s rtol 1e-4) on RCM poisson_2d(512) with `--nrhs 8`'s
-right-hand sides — the solves chip_smoke.py drives through the CLI):
+the Jacobi preconditioner, and poisson_2d(512) with `amg_classical`,
+`chebyshev` and `block_jacobi`; cg_ir, rtol 1e-10, b[i] = i; gmres_ir
+(what fp64 `gmres` runs) with `amg_classical` on poisson_2d(512); then
+block CG (rtol 1e-10) and batched BiCGSTAB (`ginkgo`'s rtol 1e-4) on RCM
+poisson_2d(512) with `--nrhs 8`'s right-hand sides — the solves
+chip_smoke.py drives through the CLI):
 
 1. set the solver up and solve once (kernel build, first launches);
 2. time 3 unprofiled solves, each fenced with `torch.cuda.synchronize`;
@@ -21,8 +23,9 @@ every launch), not the device, so the busy time of the profiled solve is
 set against the unprofiled wall time of the same process. With the Jacobi
 preconditioner, `spmv_ms` is the inner f32 SpMV kernel's device time per CG
 iteration (one SpMV each), and `spmv_gbps` the inner operator's layout
-bytes (`bytes_streamed`) over that time; with AMG the same kernels also
-run inside the V-cycle, so those two are left out. `groups` sums the device time by kind
+bytes (`bytes_streamed`) over that time; with the other preconditioners
+the same kernels also run inside the V-cycle or the polynomial, so those
+two are left out. `groups` sums the device time by kind
 of kernel (K1-K5, the sliced-ELL kernels that replace K1, K2, K3 and K5
 on the solver paths, QR, eigh, GEMM, PyTorch's elementwise and reduction
 kernels, copies) by substrings of the kernel names (`GROUPS`).
@@ -46,7 +49,7 @@ from lsbench_tpu_torch.harness.bench import reference_rhs
 from lsbench_tpu_torch.matrix.generate import poisson_2d, random_spd
 from lsbench_tpu_torch.solvers.batched_bicgstab import BatchedBicgstabSolver
 from lsbench_tpu_torch.solvers.block_cg import BlockCgSolver
-from lsbench_tpu_torch.solvers.refine import CgIrSolver
+from lsbench_tpu_torch.solvers.refine import CgIrSolver, GmresIrSolver
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # Substrings of the inner f32 SpMV kernels' names in the trace: K1, the
@@ -191,6 +194,10 @@ def main(argv=None) -> int:
             ("poisson_2d(512)", p512, "jacobi", 1, {}),
             ("random_spd(6408,23)", random_spd(6408, 23), "jacobi", 1, {}),
             ("poisson_2d(512)", p512, "amg_classical", 1, {}),
+            ("poisson_2d(512)", p512, "chebyshev", 1, {}),
+            ("poisson_2d(512)", p512, "block_jacobi", 1, {}),
+            ("poisson_2d(512)", p512, "amg_classical", 1,
+             {"solver_cls": GmresIrSolver}),
             ("poisson_2d(512)", p512, "jacobi", 8, {}),
             ("poisson_2d(512)", p512, "jacobi", 8,
              {"solver_cls": BatchedBicgstabSolver, "rtol": 1e-4})):

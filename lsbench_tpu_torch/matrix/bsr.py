@@ -229,12 +229,21 @@ def _pack(B: BsrMatrix, rule: str) -> SellMatrix:
     # (slot, lane) order.
     blk = B.blocks.view(G, S, BR, BC).permute(0, 2, 1, 3)
     g, r, s, c = torch.nonzero(blk, as_tuple=True)
-    rows = g * BR + r
-    cols = cb[g * S + s] * BC + c
     # An id outside [0, C) puts all 128 lanes outside [0, ncols).
-    keep = (rows < B.nrows) & (cols >= 0) & (cols < B.ncols)
-    return SellMatrix.from_rows(rows[keep], cols[keep].int(),
-                                blk[g, r, s, c][keep], B.nrows, B.ncols)
+    return _sell_of_entries(g * BR + r, cb[g * S + s] * BC + c,
+                            blk[g, r, s, c], B.nrows, B.ncols)
+
+
+def _sell_of_entries(rows, cols, vals, nrows: int, ncols: int) -> SellMatrix:
+    """The f32 `SellMatrix` of the entries (int64 rows ascending, each
+    row's entries in the order its sum takes them; int64 cols) that lie
+    inside the nrows × ncols matrix; the others are dropped."""
+    if ncols >= 2**31:
+        raise ValueError(f"{ncols} columns outside the kernels' int32 "
+                         "column range")
+    keep = (rows >= 0) & (rows < nrows) & (cols >= 0) & (cols < ncols)
+    return SellMatrix.from_rows(rows[keep], cols[keep].int(), vals[keep],
+                                nrows, ncols)
 
 
 def _bsr_selector(block_cols: np.ndarray, ncols: int) -> np.ndarray:
@@ -421,19 +430,21 @@ class BsrCompact:
     """Exact-block BSR: only the occupied (8-row, 128-col) blocks, sorted
     by (row group, column block), with per-block metadata. The block count
     is padded to a multiple of `blocks_per_step` with zero blocks at gid 0
-    (the JAX package's arrays, bit for bit). `goff` is the port's addition:
-    the blocks of row group g are `blocks[goff[g]:goff[g+1]]`, so the kernel
-    walks each group's range instead of scatter-adding into y; the zero
-    padding blocks lie in no range."""
+    (the JAX package's arrays, bit for bit). As in the JAX kernel, the
+    product sums each block's rows into y[gid] in any block order, so an
+    outside layout need not be sorted and duplicate (gid, bcol) blocks
+    add."""
 
     blocks: torch.Tensor  # (T_pad, 8, 128)
     gids: torch.Tensor    # (T_pad,) int32 row-group id (pad → 0, blocks 0)
     bcols: torch.Tensor   # (T_pad,) int32 column-block id
-    goff: torch.Tensor    # (n_groups + 1,) int32 block range of each group
     nrows: int
     ncols: int
     nnz: int
     n_groups: int         # real row groups (no GPS padding)
+    # The packed form (`packed`); `.to()` and `replace` start with none.
+    _packed: SellMatrix | None = field(default=None, init=False, repr=False,
+                                       compare=False)
 
     @property
     def n_blocks(self) -> int:
@@ -459,37 +470,47 @@ class BsrCompact:
         bcols = np.zeros(T, dtype=np.int32)
         gids[:n_pairs] = p.pair_group
         bcols[:n_pairs] = p.pair_cb
-        n_groups = _round_up(A.nrows, BR) // BR
         return BsrCompact(
             blocks=blocks, gids=torch.from_numpy(gids),
-            bcols=torch.from_numpy(bcols),
-            goff=torch.from_numpy(_group_offsets(p.pair_group, n_groups)),
-            nrows=A.nrows, ncols=A.ncols, nnz=A.nnz,
-            n_groups=n_groups).to(device)
+            bcols=torch.from_numpy(bcols), nrows=A.nrows, ncols=A.ncols,
+            nnz=A.nnz, n_groups=_round_up(A.nrows, BR) // BR).to(device)
 
     def to(self, device) -> "BsrCompact":
         return dataclasses.replace(self, blocks=self.blocks.to(device),
                                    gids=self.gids.to(device),
-                                   bcols=self.bcols.to(device),
-                                   goff=self.goff.to(device))
+                                   bcols=self.bcols.to(device))
+
+    def packed(self) -> SellMatrix:
+        """The layout's nonzero elements as an f32 `SellMatrix`: element
+        (t, r, c) becomes entry (8·gids[t] + r, 128·bcols[t] + c). Elements
+        equal to 0 (so the padding blocks), rows at or past nrows and
+        columns at or past ncols (the x table is 0 there) are dropped; a
+        row keeps its entries in (block, lane) order, so for the sorted
+        layouts of `from_csr` in ascending column, and the form equals
+        `SellMatrix.from_csr` of the same CSR array for array. Duplicate
+        blocks become repeated entries, which the product sums. Built once
+        with torch ops on the layout's device (no host copy of the blocks)
+        and cached on the layout."""
+        if self._packed is None:
+            self._packed = _pack_compact(self)
+        return self._packed
 
 
-def _group_offsets(sorted_gids: np.ndarray, n_groups: int) -> np.ndarray:
-    """Block range offsets (n_groups + 1,) int32 of sorted row-group ids."""
-    return np.searchsorted(sorted_gids, np.arange(n_groups + 1),
-                           side="left").astype(np.int32)
-
-
-def _compact_offsets(blocks: torch.Tensor, gids: np.ndarray,
-                     n_groups: int) -> np.ndarray:
-    """`goff` of an outside compact layout: its gids must be sorted, apart
-    from a tail of all-zero blocks (the padding), which no range covers."""
-    drops = np.flatnonzero(gids[1:] < gids[:-1])
-    m = gids.size if drops.size == 0 else int(drops[0]) + 1
-    if bool(blocks[m:].any()):
-        raise ValueError("compact layout: gids are not sorted (apart from a "
-                         "tail of all-zero padding blocks)")
-    return _group_offsets(gids[:m], n_groups)
+def _pack_compact(A: BsrCompact) -> SellMatrix:
+    T = A.n_blocks
+    if A.blocks.dtype != torch.float32 or tuple(A.blocks.shape) != (T, BR, BC):
+        raise ValueError(f"blocks: expected float32 of shape {(T, BR, BC)}, "
+                         f"got {A.blocks.dtype} {tuple(A.blocks.shape)}")
+    for t, name in ((A.gids, "gids"), (A.bcols, "bcols")):
+        if t.dtype != torch.int32 or tuple(t.shape) != (T,):
+            raise ValueError(f"{name}: expected int32 of shape {(T,)}")
+    t, r, c = torch.nonzero(A.blocks, as_tuple=True)  # (t, r, c) order
+    # int64: 128·bcols + c overflows int32 on wide operators.
+    rows = A.gids.long()[t] * BR + r
+    order = torch.sort(rows, stable=True).indices
+    t, r, c = t[order], r[order], c[order]
+    return _sell_of_entries(rows[order], A.bcols.long()[t] * BC + c,
+                            A.blocks[t, r, c], A.nrows, A.ncols)
 
 
 def from_jax_arrays(*, nrows: int, ncols: int, nnz: int, blocks=None,
@@ -508,8 +529,8 @@ def from_jax_arrays(*, nrows: int, ncols: int, nnz: int, blocks=None,
     - `blocks`, `gids`, `bcols` as arrays, plus `n_groups` → BsrCompact.
 
     Everything is checked like any outside input: dtypes, shapes, index
-    ranges, a selector whose rows are exactly one-hot at `block_cols`, and
-    compact gids sorted apart from a tail of all-zero padding blocks. Only
+    ranges and a selector whose rows are exactly one-hot at `block_cols`; a
+    compact layout's blocks may come in any order. Only
     BR=8 row groups are taken (the JAX package's default block_rows).
     """
     def t(a, dtype):
@@ -536,9 +557,7 @@ def from_jax_arrays(*, nrows: int, ncols: int, nnz: int, blocks=None,
             raise ValueError("gids and bcols need one entry per block")
         in_range(g, n_groups, "row group id")
         in_range(c, n_cb, "block column index")
-        goff = _compact_offsets(blk, g.numpy(), n_groups)
-        return BsrCompact(blocks=blk, gids=g, bcols=c,
-                          goff=torch.from_numpy(goff), nrows=nrows,
+        return BsrCompact(blocks=blk, gids=g, bcols=c, nrows=nrows,
                           ncols=ncols, nnz=nnz, n_groups=n_groups).to(device)
     if bcols is not None:
         if n_groups is None or oidx is None or blocks is None:

@@ -29,7 +29,8 @@ f32 layout and shares `cols` and `slice_off` with it.
 
 Built with torch ops from the (RCM-ordered) `CsrMatrix` on the host and
 uploaded (`device=`), or from row-sorted entries on their own device
-(`from_rows`: the packed forms of a `BsrMatrix`, `matrix/bsr.py`);
+(`from_rows`: the packed forms of a `BsrMatrix` or a `BsrCompact`,
+`matrix/bsr.py`);
 validated once here, so the wrappers check only x per call.
 """
 

@@ -39,7 +39,6 @@ SOURCES = {
                  ("lsb_spmv_bsr_f64acc", 5, 2),
                  ("lsb_spmm_bsr_f32", 4, 3)),
     "well_spmv": (("lsb_spmv_well_f32", 5, 3),),
-    "bsr_variants": (("lsb_spmv_bsr_compact_f32", 5, 1),),
     "sell_spmv": (("lsb_spmv_sell_f32", 5, 1),
                   ("lsb_spmv_sell_f64", 5, 1)),
     "sell_spmm": (("lsb_spmm_sell_f32", 5, 2),),

@@ -15,12 +15,13 @@ Counterpart of `lsbench_tpu/ops/spmv_pallas.py`, with its public signatures:
 
 Dispatch: tensors on the CPU go to the `*_plain` version (gather + einsum,
 the JAX package's `matvec_reference`); tensors on one CUDA device launch
-the kernel (`csrc/bsr_spmv.cu`, `csrc/bsr_variants.cu` for K6) or raise.
-K7 and K8 on the card run the SELL f32 kernel (`csrc/sell_spmv.cu`) over
-the layout's packed form for their gather rule (`BsrMatrix.packed`): the
-TPU kernels' one-hot products only avoid scalar-indexed loads, which are a
-plain gather on Hopper, so the gather is resolved once per layout and the
-call streams the nonzeros alone, not the dense blocks. There is no
+the kernel (`csrc/bsr_spmv.cu`) or raise. K6, K7 and K8 on the card run
+the SELL f32 kernel (`csrc/sell_spmv.cu`) over the layout's packed form
+(`BsrCompact.packed`; `BsrMatrix.packed` for K7's and K8's gather rules):
+over 99% of the dense 8×128 blocks are zeros on the matrices the port
+runs, and the TPU kernels' one-hot products only avoid scalar-indexed
+loads, which are a plain gather on Hopper, so the layout is resolved once
+into its nonzeros and each call streams those alone. There is no
 fallback from a CUDA tensor to the plain version. Each kernel launch adds
 one to its count in `LAUNCHES`, so a run can show that it went through the
 kernels. K6–K8 sit on no solver path, as in the JAX package: this API is
@@ -199,24 +200,24 @@ def spmv_bsr_compact_plain(A: BsrCompact, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmv_bsr_compact(A: BsrCompact, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x over the exact-block BsrCompact layout (f32)."""
+    """y = A @ x over the exact-block BsrCompact layout (f32). On the CPU
+    the plain version, the JAX semantics. On a CUDA device the SELL f32
+    kernel over the layout's packed form (`BsrCompact.packed`: built on
+    the first call, cached), x read in place and checked alone, as
+    `spmv_sell` does."""
+    if x.is_cuda:
+        if A.blocks.device != x.device:
+            raise ValueError(f"BSR SpMV operands on {A.blocks.device} and "
+                             f"{x.device}: need one CUDA device")
+        P = A.packed()
+        return spmv_sell.launch(P, P.vals, x, torch.float32, 1,
+                                "spmv_sell_f32", "bsr_compact_f32", LAUNCHES)
     T = A.n_blocks
     _check(A.blocks, "blocks", torch.float32, (T, BR, BC))
     _check(A.gids, "gids", torch.int32, (T,))
     _check(A.bcols, "bcols", torch.int32, (T,))
-    _check(A.goff, "goff", torch.int32, (A.n_groups + 1,))
-    if _on_cpu(A.blocks, A.gids, A.bcols, A.goff, x):
-        return spmv_bsr_compact_plain(A, x)
-    lib = _cuda.library("bsr_variants")
-    xt = _x_table(x, A.ncols, A.n_col_blocks, torch.float32)
-    y = torch.empty((A.n_groups, BR), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.lsb_spmv_bsr_compact_f32(
-            A.blocks.data_ptr(), A.bcols.data_ptr(), A.goff.data_ptr(),
-            xt.data_ptr(), y.data_ptr(), A.n_groups, _stream(x.device))
-    _cuda.check(rc, "spmv_bsr_compact_f32")
-    LAUNCHES["bsr_compact_f32"] += 1
-    return y.view(-1)[: A.nrows]
+    _on_cpu(A.blocks, A.gids, A.bcols, x)  # raises unless all on the CPU
+    return spmv_bsr_compact_plain(A, x)
 
 
 # ------------------------------------------------ K3: f32, k columns

@@ -25,8 +25,8 @@ Dispatch: x on the CPU with the layout on the CPU runs the plain version;
 x on the layout's CUDA device launches the kernel; anything else raises.
 There is no fallback from a CUDA tensor to the plain version. Each launch
 adds one to `LAUNCHES["sell_f32"]`, `LAUNCHES["sell_f64"]` or
-`LAUNCHES["sell_mm_f32"]`; the BSR K7 and K8 (`ops/spmv_bsr.py`) run the
-f32 kernel on their packed layouts through `launch` and count there.
+`LAUNCHES["sell_mm_f32"]`; the BSR K6, K7 and K8 (`ops/spmv_bsr.py`) run
+the f32 kernel on their packed layouts through `launch` and count there.
 """
 
 from __future__ import annotations

@@ -4,6 +4,7 @@ from lsbench_tpu_torch.solvers.base import (SolveResult, Solver, get_solver,
 # Importing solver modules registers them.
 from lsbench_tpu_torch.solvers import cg  # noqa: F401
 from lsbench_tpu_torch.solvers import bicgstab  # noqa: F401
+from lsbench_tpu_torch.solvers import gmres  # noqa: F401
 from lsbench_tpu_torch.solvers import refine  # noqa: F401
 from lsbench_tpu_torch.solvers import direct  # noqa: F401
 from lsbench_tpu_torch.solvers import sparse_cholesky  # noqa: F401

@@ -2,9 +2,9 @@
 `lsbench_tpu/solvers/preconditioners.py`).
 
 A preconditioner is `(state, apply)` with `apply(state, r) -> z`. Ported:
-`none` (identity), `jacobi`, and one AMG V-cycle (`amg`, `amg_classical`,
-`solvers/amg.py`); block_jacobi, ic0 and chebyshev are ROADMAP Queue 1
-items and raise NotImplementedError.
+`none` (identity), `jacobi`, `block_jacobi`, `chebyshev`, and one AMG
+V-cycle (`amg`, `amg_classical`, `solvers/amg.py`); `ic0` is a ROADMAP
+Queue 1 item and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
+from lsbench_tpu_torch.utils.precision import full_f32
 
 
 def identity_precond(A: CsrMatrix, dtype, device, **_):
@@ -26,6 +27,77 @@ def jacobi_precond(A: CsrMatrix, dtype, device, **_):
     inv = np.where(d != 0.0, 1.0 / np.where(d == 0.0, 1.0, d), 1.0)
     inv_dev = torch.as_tensor(inv, dtype=dtype, device=device)
     return inv_dev, lambda inv_dev, r: inv_dev * r
+
+
+def block_jacobi_precond(A: CsrMatrix, dtype, device, block_size: int = 32):
+    """z = blockdiag(A)⁻¹ r with dense diagonal blocks of `block_size`,
+    taken in the solver's current ordering (identity rows pad the last
+    block). The blocks are extracted and inverted in f64 on the host once,
+    then uploaded in `dtype`; the apply is one batched (nb, k, k) × (nb, k)
+    product on the device, in full f32 for f32 (the JAX package computes it
+    outside any Pallas kernel)."""
+    n = A.nrows
+    k = block_size
+    nb = -(-n // k)
+    blocks = np.zeros((nb, k, k), dtype=np.float64)
+    blocks[:, np.arange(k), np.arange(k)] = 1.0  # identity in padding
+    r, c, v = A.to_coo()
+    same = (r // k) == (c // k)
+    rb, cb, vb = r[same], c[same], v[same]
+    blocks[rb // k, rb % k, cb % k] = vb
+    inv_blocks = torch.as_tensor(np.linalg.inv(blocks), dtype=dtype,
+                                 device=device)
+
+    def apply(inv_blocks, r_vec):
+        rp = torch.zeros(nb * k, dtype=inv_blocks.dtype, device=r_vec.device)
+        rp[:n] = r_vec
+        with full_f32():
+            z = torch.bmm(inv_blocks, rp.view(nb, k, 1))
+        return z.view(-1)[:n].to(r_vec.dtype)
+
+    return inv_blocks, apply
+
+
+def chebyshev_precond(A: CsrMatrix, dtype, device, degree: int = 4,
+                      lower: float = 0.30, **_):
+    """Fixed-degree Chebyshev polynomial approximation of A⁻¹ on
+    [lower·ρ, 1.1·ρ] of D⁻¹A, ρ from the host power iteration. The apply
+    is degree − 1 SpMVs plus vector ops, no dot products: the SpMV is
+    `build_matvec(A, resolve_layout("auto", dtype))`, the SELL f32 kernel
+    for f32 and the SELL f64 kernel for f64. A fixed polynomial is a fixed
+    SPD operator, so CG theory holds exactly."""
+    from lsbench_tpu_torch.solvers.amg import estimate_rho_dinv_a
+    from lsbench_tpu_torch.solvers.cg import build_matvec, resolve_layout
+
+    d = A.diagonal()
+    dinv_np = np.where(d != 0.0, 1.0 / np.where(d == 0.0, 1.0, d), 1.0)
+    rho = estimate_rho_dinv_a(A, dinv_np)
+    lmax = 1.1 * rho
+    lmin = lower * rho
+    theta = (lmax + lmin) / 2.0
+    delta = (lmax - lmin) / 2.0
+    sigma = theta / delta
+
+    apply_mv, op = build_matvec(A, resolve_layout("auto", dtype), device)
+    state = (op, torch.as_tensor(dinv_np, dtype=dtype, device=device))
+    deg = int(degree)
+
+    def apply(state, r):
+        op, dinv = state
+        rho_k = 1.0 / sigma
+        res = r
+        dvec = (dinv * res) / theta
+        z = torch.zeros_like(r)
+        for _ in range(deg - 1):
+            z = z + dvec
+            res = res - apply_mv(op, dvec).to(r.dtype)
+            rho_k1 = 1.0 / (2.0 * sigma - rho_k)
+            dvec = ((rho_k1 * rho_k) * dvec
+                    + (2.0 * rho_k1 / delta) * (dinv * res))
+            rho_k = rho_k1
+        return z + dvec
+
+    return state, apply
 
 
 def _amg_precond(A: CsrMatrix, dtype, device, **amg_params):
@@ -48,10 +120,12 @@ def _amg_classical_precond(A: CsrMatrix, dtype, device, **amg_params):
 PRECONDITIONERS = {
     "none": identity_precond,
     "jacobi": jacobi_precond,
+    "block_jacobi": block_jacobi_precond,
+    "chebyshev": chebyshev_precond,
     "amg": _amg_precond,
     "amg_classical": _amg_classical_precond,
 }
-NOT_PORTED = ("block_jacobi", "ic0", "chebyshev")
+NOT_PORTED = ("ic0",)
 
 
 def get_preconditioner(name: str):

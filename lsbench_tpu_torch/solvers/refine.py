@@ -8,9 +8,9 @@ residual r = b − A·x on the sliced-ELL f64 product `spmv_sell_f64`, an
 exact native-FP64 matvec where the TPU ran the double-float BSR kernel K2.
 Each pass gains ~6 digits, so 2–4 passes reach the reference's direct-solve
 tolerance 1e-10. The layout names and gates are the JAX package's TPU
-branch on every device. Inner methods: CG (`cg_ir`) and BiCGSTAB
-(`bicgstab_ir`, what fp64 `bicgstab` delegates to); `gmres_ir` is a ROADMAP
-Queue 1 item.
+branch on every device. Inner methods: CG (`cg_ir`), BiCGSTAB
+(`bicgstab_ir`, what fp64 `bicgstab` delegates to) and restarted GMRES
+(`gmres_ir`, what fp64 `gmres` delegates to).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from lsbench_tpu_torch.solvers.base import SolveResult, Solver, register_solver
 from lsbench_tpu_torch.solvers.bicgstab import bicgstab_loop
 from lsbench_tpu_torch.solvers.cg import (build_matvec, cg_loop, permutation,
                                           resolve_layout)
+from lsbench_tpu_torch.solvers.gmres import gmres_loop, max_restarts_for
 from lsbench_tpu_torch.solvers.preconditioners import get_preconditioner
 
 
@@ -176,6 +177,25 @@ class CgIrSolver(KrylovIrSolver):
     def _inner_loop(self, mv32, pc, rhs32):
         d32, inner_iters, _, _ = cg_loop(
             mv32, pc, rhs32, self.inner_rtol, self.maxiter, torch.float32)
+        return d32, inner_iters
+
+
+@register_solver("gmres_ir")
+class GmresIrSolver(KrylovIrSolver):
+    """f32 restarted-GMRES inner solve + f64 residual refinement: the f32
+    Arnoldi loop on the f32 SpMV, f64 accuracy from the outer residual."""
+
+    def __init__(self, A: CsrMatrix, restart=30, max_restarts=None,
+                 maxiter=None, **params):
+        self.restart = int(restart)
+        self.max_restarts = (int(max_restarts) if max_restarts is not None
+                             else max_restarts_for(A, maxiter, self.restart))
+        super().__init__(A, maxiter=maxiter, **params)
+
+    def _inner_loop(self, mv32, pc, rhs32):
+        d32, inner_iters, _, _ = gmres_loop(
+            mv32, pc, rhs32, self.inner_rtol, self.max_restarts,
+            self.restart, torch.float32)
         return d32, inner_iters
 
 

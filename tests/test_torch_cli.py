@@ -156,6 +156,60 @@ def test_direct_solvers_match_jax_cli(poisson_file, capsys, extra, solver,
         assert rec["schedule"] == "host" and rec["fill_nnz"] > 1920
 
 
+@pytest.mark.parametrize("extra,solver,precision,j_precision", [
+    ([], "gmres", "fp64(fp32_ir_auto)", "fp64"),
+    (["--precision", "fp32_ir"], "gmres_ir", "fp32_ir", "fp32_ir"),
+    (["--precision", "fp32", "--rtol", "1e-5"], "gmres", "fp32", "fp32"),
+])
+def test_gmres_through_the_cli(poisson_file, capsys, extra, solver,
+                               precision, j_precision):
+    """`--solver gmres` runs GMRES, not the default solver: at fp64 as
+    gmres_ir (the JAX package's TPU branch, on every device), at fp32_ir
+    mapped onto gmres_ir, at fp32 on the f32 kernel. The JAX CLI on the
+    CPU takes its non-TPU branch at fp64 (native f64 GMRES)."""
+    argv = ["--matrix", str(poisson_file), "--solver", "gmres", "--ordering",
+            "rcm", "--rtol", "1e-10", "--trials", "2", "--warmups", "1",
+            "--json", *extra]
+    rc, out, err = _run(main, argv + ["--platform", "cpu"], capsys)
+    assert rc == 0, err
+    assert "Invalid solver" not in err
+    assert ("fp32_ir_auto" in err) == ("fp32_ir_auto" in precision)
+    rec = json.loads(out[2])
+    assert out[1].split(",")[4] == rec["solver"] == solver
+    assert rec["precision"] == precision and rec["converged"] is True
+    bar = 1e-5 if "fp32" in extra else 1e-10
+    assert rec["true_relres"] <= bar and rec["iters"] % 30 == 0
+    j_rc, j_out, _ = _run(j_main, argv, capsys)
+    j_rec = json.loads(j_out[2])
+    assert j_rc == 0 and j_rec["solver"] == solver
+    assert j_rec["precision"] == j_precision and j_rec["converged"] is True
+
+
+@pytest.mark.parametrize("precond", ["block_jacobi", "chebyshev"])
+def test_new_preconds_through_the_cli(poisson_file, capsys, precond):
+    argv = ["--matrix", str(poisson_file), "--solver", "cg_ir", "--precond",
+            precond, "--ordering", "rcm", "--rtol", "1e-10", "--trials", "2",
+            "--warmups", "1", "--json"]
+    rc, out, err = _run(main, argv + ["--platform", "cpu"], capsys)
+    assert rc == 0, err
+    rec = json.loads(out[2])
+    j_rc, j_out, _ = _run(j_main, argv, capsys)
+    j_rec = json.loads(j_out[2])
+    assert j_rc == 0 and rec["solver"] == j_rec["solver"] == "cg_ir"
+    assert rec["converged"] is True and rec["true_relres"] <= 1e-10
+    assert rec["precision"] == j_rec["precision"] == "fp64"
+
+
+def test_gmres_nrhs_exits_1_as_in_the_jax_cli(poisson_file, capsys):
+    argv = ["--matrix", str(poisson_file), "--solver", "gmres", "--nrhs",
+            "2", "--trials", "1"]
+    rc, out, err = _run(main, argv + ["--platform", "cpu"], capsys)
+    j_rc, j_out, j_err = _run(j_main, argv, capsys)
+    assert rc == j_rc == 1 and not out and not j_out
+    for e in (err, j_err):
+        assert "got 'gmres' (for gmres run one RHS per solve)" in e
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("extra", [
     ["--solver", "bicgstab", "--precision", "fp32_ir"],
@@ -165,10 +219,16 @@ def test_direct_solvers_match_jax_cli(poisson_file, capsys, extra, solver,
     ["--solver", "ginkgo", "--nrhs", "3", "--precision", "fp32_ir"],
     [], ["--solver", "cusolver"], ["--solver", "cholmod", "--nrhs", "3"],
     ["--solver", "sparse_cholesky", "--opt", "schedule=block"],
+    ["--solver", "gmres"],
+    ["--solver", "gmres", "--precision", "fp32", "--rtol", "1e-5"],
+    ["--solver", "gmres", "--precond", "amg_classical"],
+    ["--solver", "cg_ir", "--precond", "chebyshev"],
+    ["--solver", "cg_ir", "--precond", "block_jacobi"],
 ])
 def test_krylov_cli_on_card(poisson_file, capsys, extra):
-    """The BiCGSTAB, multi-RHS and direct solver spellings through the CLI
-    on the card: each converges and launches kernels."""
+    """The BiCGSTAB, GMRES, multi-RHS and direct solver spellings and the
+    block-Jacobi and Chebyshev preconditioners through the CLI on the card:
+    each converges and launches kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from lsbench_tpu_torch.ops import spmv_bsr, spmv_sell
@@ -215,7 +275,7 @@ def test_missing_or_malformed_file(tmp_path, capsys, content):
     ["--roofline"],
     ["--profile-dir", "prof"], ["--cache"], ["--cache-dir", "c"],
     ["--coordinator", "localhost:1234"], ["--debug-nans"],
-    ["--solver", "cg", "--precond", "block_jacobi"],
+    ["--solver", "cholesky_band"],
     ["--solver", "sparse_cholesky", "--opt", "schedule=level"],
     ["--solver", "cg", "--precond", "ic0"],
     ["--platform", "tpu"],

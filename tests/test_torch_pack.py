@@ -1,6 +1,8 @@
 """Port parity: the packed forms of the uniform BSR layout
 (`BsrMatrix.packed`), on which K7 (`spmv_bsr(variant="selector")`) and K8
-(`variant="onehot"`) run the SELL f32 kernel on the card.
+(`variant="onehot"`) run the SELL f32 kernel on the card, and of the
+exact-block layout (`BsrCompact.packed`), on which K6 (`spmv_bsr_compact`)
+runs it.
 
 Each packed form must equal `SellMatrix.from_csr` of the same CSR array for
 array (the matrices here have sorted columns and no value that is 0 in
@@ -25,15 +27,20 @@ from lsbench_tpu_torch.matrix.sell import SellMatrix
 from lsbench_tpu_torch.ops import spmv_bsr as ops
 from lsbench_tpu_torch.ops import spmv_sell
 
-from test_torch_variants import CASES, _close, _x
+from lsbench_tpu.matrix.generate import poisson_2d as j_poisson_2d
+from test_torch_variants import CASES, _close, _port_csr, _x
 
 CPU = torch.device("cpu")
 RULES = ("selector", "onehot")
 PLAIN = {"selector": ops.spmv_bsr_selector_plain,
          "onehot": ops.spmv_bsr_onehot_plain}
 
-pytestmark = [pytest.mark.parametrize("rule", RULES),
-              pytest.mark.parametrize("case", sorted(CASES))]
+
+
+def _rule_case(test):
+    """Each gather-rule test runs for every rule on every case."""
+    return pytest.mark.parametrize("case", sorted(CASES))(
+        pytest.mark.parametrize("rule", RULES)(test))
 
 
 def _layout(A) -> tbsr.BsrMatrix:
@@ -63,11 +70,13 @@ def _real_slot(B: tbsr.BsrMatrix) -> tuple[int, int]:
     return g, s
 
 
+@_rule_case
 def test_packed_form_equals_sell_from_csr(case, rule):
     A = CASES[case]()
     _same(_layout(A).packed(rule), SellMatrix.from_csr(A, device=CPU))
 
 
+@_rule_case
 def test_packed_form_matches_jax_and_host(case, rule):
     A = CASES[case]()
     x = _x(A.ncols, 11)
@@ -83,6 +92,7 @@ def test_packed_form_matches_jax_and_host(case, rule):
     assert _close(y64, A.matvec(x))
 
 
+@_rule_case
 def test_out_of_range_block_id(case, rule):
     """Under "onehot" a slot whose id lies outside [0, C) is dropped, as
     the one-hot product gathers 0 there; under "selector" block_cols is
@@ -115,6 +125,7 @@ def test_out_of_range_block_id(case, rule):
                       (y0 - part[: A.nrows]).numpy().astype(np.float64))
 
 
+@_rule_case
 def test_selector_not_one_hot_raises(case, rule):
     """A selector row with two nonzeros, or a 2.0, is refused when the
     "selector" form is packed; the "onehot" form never reads the
@@ -137,6 +148,7 @@ def test_selector_not_one_hot_raises(case, rule):
             _same(Bad.packed(rule), B.packed(rule))
 
 
+@_rule_case
 def test_elements_past_ncols_and_nrows_dropped(case, rule):
     """Nonzeros planted where the x table is 0 (lanes at or past ncols)
     and in rows at or past nrows are dropped: the pack equals the clean
@@ -172,6 +184,7 @@ def test_elements_past_ncols_and_nrows_dropped(case, rule):
                   PLAIN[rule](Bad, x).numpy().astype(np.float64))
 
 
+@_rule_case
 def test_pack_cached_and_rebuilt_by_to(case, rule):
     A = CASES[case]()
     B = _layout(A)
@@ -188,3 +201,163 @@ def test_pack_cached_and_rebuilt_by_to(case, rule):
     assert torch.equal(ops.spmv_bsr(B, x, variant=rule), PLAIN[rule](B, x))
     with pytest.raises(ValueError):
         ops.spmv_bsr(B, x.to("meta"), variant=rule)
+
+
+# ------------------------------------------- K6: the exact-block pack
+
+COMPACT = {
+    "poisson_2d(40)": lambda: _port_csr(j_poisson_2d(40)),
+    "random_spd(300,9) RCM": CASES["random_spd(300,9) RCM"],
+    "T%16!=0 poisson_2d(17)": CASES["T%16!=0 poisson_2d(17)"],
+    "C=1 poisson_2d(9)": CASES["C=1 poisson_2d(9)"],
+}
+
+
+def _compact(A) -> tbsr.BsrCompact:
+    return tbsr.BsrCompact.from_csr(A, device=CPU)
+
+
+def _jax_compact(C: tbsr.BsrCompact, blocks=None, gids=None, bcols=None):
+    """The JAX layout holding C's arrays (or the ones given)."""
+    def arr(t, given):
+        return jnp.asarray((t if given is None else given).numpy())
+    return jbsr.BsrCompact(blocks=arr(C.blocks, blocks),
+                           gids=arr(C.gids, gids), bcols=arr(C.bcols, bcols),
+                           nrows=C.nrows, ncols=C.ncols, nnz=C.nnz,
+                           n_groups=C.n_groups)
+
+
+def _close6(y: torch.Tensor, ref) -> bool:
+    """Within 1e-6 of the largest |ref| (f32 sums taken in another
+    order)."""
+    ref = np.asarray(ref, dtype=np.float64)
+    err = np.abs(y.numpy().astype(np.float64) - ref).max()
+    return err <= 1e-6 * max(np.abs(ref).max(), 1e-30)
+
+
+@pytest.mark.parametrize("case", sorted(COMPACT))
+def test_compact_packed_form_equals_sell_from_csr(case):
+    A = COMPACT[case]()
+    C = _compact(A)
+    P = C.packed()
+    _same(P, SellMatrix.from_csr(A, device=CPU))
+    x = _x(A.ncols, 15)
+    xt = torch.as_tensor(x, dtype=torch.float32)
+    y = spmv_sell.spmv_sell_plain(P, xt)
+    y_jax = np.asarray(jops.spmv_bsr_compact(_jax_compact(C), jnp.asarray(x),
+                                             interpret=True))
+    assert _close6(y, ops.spmv_bsr_compact_plain(C, xt))
+    assert _close6(y, y_jax)
+    assert _close(y.numpy().astype(np.float64), A.matvec(x))
+
+
+def _planted(C: tbsr.BsrCompact, kind: str):
+    """(blocks, gids, bcols) of C with one fault planted, and the change
+    the pack must show: "same" (the clean pack, array for array), or the
+    number of entries it gains (negative: loses)."""
+    blocks, gids, bcols = C.blocks.clone(), C.gids.clone(), C.bcols.clone()
+    real = int(blocks.flatten(1).any(dim=1).sum())  # sorted, padding last
+    if kind == "zero element":
+        t, r, c = (int(i) for i in torch.nonzero(blocks[:real])[3])
+        blocks[t, r, c] = 0.0
+        return blocks, gids, bcols, -1
+    if kind == "row past nrows":
+        last = torch.nonzero(gids[:real] == C.n_groups - 1)[0, 0]
+        blocks[last, C.nrows % 8:, :] = 3.0
+        return blocks, gids, bcols, "same"
+    if kind == "lane past ncols":
+        C_last = C.n_col_blocks - 1
+        t = torch.nonzero(bcols[:real] == C_last)[0, 0]
+        blocks[t, :, C.ncols - 128 * C_last:] = 7.0
+        return blocks, gids, bcols, "same"
+    if kind == "padding blocks":
+        pad = torch.zeros((5, 8, 128), dtype=torch.float32)
+        ids = torch.tensor([0, C.n_groups - 1, 3, 0, 1], dtype=torch.int32)
+        return (torch.cat([blocks, pad]), torch.cat([gids, ids]),
+                torch.cat([bcols, ids.flip(0) % C.n_col_blocks]), "same")
+    if kind == "unsorted gids":
+        order = torch.randperm(blocks.shape[0],
+                               generator=torch.Generator().manual_seed(5))
+        return blocks[order], gids[order], bcols[order], 0
+    if kind == "duplicated block":
+        t = real // 2
+        dup = blocks[t:t + 1] * 0.5
+        return (torch.cat([blocks, dup]), torch.cat([gids, gids[t:t + 1]]),
+                torch.cat([bcols, bcols[t:t + 1]]),
+                int(torch.count_nonzero(dup)))
+    raise ValueError(kind)
+
+
+PLANTS = ("zero element", "row past nrows", "lane past ncols",
+          "padding blocks", "unsorted gids", "duplicated block")
+
+
+@pytest.mark.parametrize("kind", PLANTS)
+def test_compact_pack_planted(kind):
+    """Each planted layout's pack gives the plain version's product and
+    the JAX kernel's in interpret mode; what it drops or keeps is pinned
+    against the clean pack."""
+    A = COMPACT["T%16!=0 poisson_2d(17)"]()
+    C = _compact(A)
+    assert A.ncols % 128 and A.nrows % 8  # lanes and rows to plant in
+    blocks, gids, bcols, change = _planted(C, kind)
+    Bad = tbsr.BsrCompact(blocks=blocks, gids=gids, bcols=bcols,
+                          nrows=C.nrows, ncols=C.ncols, nnz=C.nnz,
+                          n_groups=C.n_groups)
+    P, clean = Bad.packed(), C.packed()
+    if change == "same":
+        _same(P, clean)
+    else:
+        assert P.nnz == clean.nnz + change
+    x = _x(A.ncols, 16)
+    xt = torch.as_tensor(x, dtype=torch.float32)
+    y = spmv_sell.spmv_sell_plain(P, xt)
+    y_jax = np.asarray(jops.spmv_bsr_compact(
+        _jax_compact(C, blocks, gids, bcols), jnp.asarray(x), interpret=True))
+    assert _close6(y, ops.spmv_bsr_compact_plain(Bad, xt))
+    assert _close6(y, y_jax)
+    assert torch.equal(ops.spmv_bsr_compact(Bad, xt),
+                       ops.spmv_bsr_compact_plain(Bad, xt))
+
+
+@pytest.mark.parametrize("case", sorted(COMPACT))
+def test_compact_pack_cached_and_rebuilt_by_to(case):
+    C = _compact(COMPACT[case]())
+    P = C.packed()
+    assert C.packed() is P and P.device == CPU
+    moved = C.to(CPU)
+    assert moved._packed is None
+    Q = moved.packed()
+    assert Q is not P
+    _same(Q, P)
+    x = torch.as_tensor(_x(C.ncols, 17), dtype=torch.float32)
+    with pytest.raises(ValueError):
+        ops.spmv_bsr_compact(C, x.to("meta"))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(COMPACT))
+def test_compact_kernel_is_spmv_sell_on_card(case, cuda_device):
+    """K6 on the card is the SELL f32 kernel over the packed form: the
+    bits of `spmv_sell` on the CSR's SELL layout, one launch counted as
+    K6's, none as the SELL kernel's."""
+    A = COMPACT[case]()
+    C = tbsr.BsrCompact.from_csr(A, device=cuda_device)
+    x = torch.as_tensor(_x(A.ncols, 18), dtype=torch.float32,
+                        device=cuda_device)
+    ref = spmv_sell.spmv_sell(SellMatrix.from_csr(A, device=cuda_device), x)
+    before = ops.LAUNCHES["bsr_compact_f32"]
+    sell_before = spmv_sell.LAUNCHES["sell_f32"]
+    y = ops.spmv_bsr_compact(C, x)
+    assert torch.equal(y, ref)
+    assert ops.LAUNCHES["bsr_compact_f32"] == before + 1
+    assert spmv_sell.LAUNCHES["sell_f32"] == sell_before
+    plain = ops.spmv_bsr_compact_plain(C, x)
+    assert float((y - plain).abs().max()) <= 1e-5 * float(plain.abs().max())

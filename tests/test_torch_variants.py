@@ -6,9 +6,10 @@ On the CPU the plain PyTorch versions are held to the JAX Pallas kernels in
 interpret mode (exact f32, K8's intended result) and to the host f64 CSR
 matvec, at 1e-5 relative to (1 + |y|) (f32 sums in another order); layouts
 must match the JAX arrays bit for bit. The CUDA kernels are held to their
-plain versions by the `cuda`-marked tests, on a card; K7 and K8 there run
-the SELL f32 kernel over the layout's packed forms (`tests/test_torch_pack.py`
-holds those forms on the CPU), so they also give `spmv_sell`'s bits."""
+plain versions by the `cuda`-marked tests, on a card; K6, K7 and K8 there
+run the SELL f32 kernel over the layouts' packed forms
+(`tests/test_torch_pack.py` holds those forms on the CPU), so they also
+give `spmv_sell`'s bits."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -75,12 +76,10 @@ def test_compact_layout_bit_identical(name):
         _bits_equal(t, j)
     assert (C.n_groups, C.n_blocks, C.n_col_blocks, C.bytes_streamed) == (
         JC.n_groups, JC.n_blocks, JC.n_col_blocks, JC.bytes_streamed)
-    # goff: each row group's blocks are one contiguous range, in order.
-    goff, gids = C.goff.numpy(), C.gids.numpy()
-    assert goff[0] == 0 and np.all(np.diff(goff) >= 0)
-    for g in range(C.n_groups):
-        assert np.all(gids[goff[g]:goff[g + 1]] == g)
-    assert not C.blocks[goff[-1]:].any()  # the padding lies in no range
+    # The packed form the card runs K6 on is the CSR's SELL layout.
+    P, R = C.packed(), SellMatrix.from_csr(_port_csr(JA), device=CPU)
+    for f in ("cols", "slice_off", "vals"):
+        assert torch.equal(getattr(P, f), getattr(R, f)), f
 
 
 @pytest.mark.parametrize("name", sorted(MATRICES))
@@ -110,7 +109,7 @@ def test_from_jax_arrays_compact_and_selector():
     ref = tbsr.BsrCompact.from_csr(A, device=CPU)
     assert isinstance(C, tbsr.BsrCompact)
     for t, r in ((C.blocks, ref.blocks), (C.gids, ref.gids),
-                 (C.bcols, ref.bcols), (C.goff, ref.goff)):
+                 (C.bcols, ref.bcols)):
         assert torch.equal(t, r)
 
     JB = jbsr.BsrMatrix.from_csr(JA, with_sel=True)
@@ -124,7 +123,9 @@ def test_from_jax_arrays_compact_and_selector():
                        tbsr.BsrMatrix.from_csr(A, device=CPU).block_cols)
 
     # Outside input is checked: a selector row that is not one-hot, or not
-    # at its block column; out-of-range ids; unsorted gids.
+    # at its block column; out-of-range ids. Unsorted gids are taken: the
+    # product sums each block into y[gid] in any order, as the JAX kernel
+    # does.
     sel = np.asarray(JB.sel)
     for bad_sel in (sel * 2.0, np.roll(sel, 1, axis=1),
                     np.concatenate([sel[:, :1] * 0, sel[:, 1:]], axis=1)):
@@ -143,10 +144,21 @@ def test_from_jax_arrays_compact_and_selector():
         tbsr.from_jax_arrays(device=CPU, **meta, **bad)
     order = np.arange(JC.n_blocks)
     order[[0, 5]] = order[[5, 0]]  # two nonzero blocks of other groups
-    bad = dict(arrays, blocks=arrays["blocks"][order],
-               gids=arrays["gids"][order], bcols=arrays["bcols"][order])
-    with pytest.raises(ValueError, match="not sorted"):
-        tbsr.from_jax_arrays(device=CPU, **meta, **bad)
+    shuffled = dict(arrays, blocks=arrays["blocks"][order],
+                    gids=arrays["gids"][order], bcols=arrays["bcols"][order])
+    S = tbsr.from_jax_arrays(device=CPU, **meta, **shuffled)
+    x = _x(JA.ncols, 9)
+    xt = torch.as_tensor(x, dtype=torch.float32)
+    y_jax = np.asarray(jops.spmv_bsr_compact(
+        jbsr.BsrCompact(blocks=jnp.asarray(shuffled["blocks"]),
+                        gids=jnp.asarray(shuffled["gids"]),
+                        bcols=jnp.asarray(shuffled["bcols"]),
+                        nrows=JA.nrows, ncols=JA.ncols, nnz=JA.nnz,
+                        n_groups=JC.n_groups),
+        jnp.asarray(x), interpret=True))
+    for y in (ops.spmv_bsr_compact(S, xt),
+              spmv_sell.spmv_sell_plain(S.packed(), xt)):
+        assert _close(y.numpy().astype(np.float64), y_jax)
     with pytest.raises(ValueError, match="one entry per block"):
         tbsr.from_jax_arrays(device=CPU, **meta,
                              **dict(arrays, gids=arrays["gids"][:-1]))
@@ -221,11 +233,11 @@ CASES = {**EDGE, **{k: (lambda m=m: _port_csr(m())) for k, m in
 def test_edge_cases_have_their_shapes():
     def compact(name):
         return tbsr.BsrCompact.from_csr(EDGE[name](), device=CPU)
-    assert int(compact("T%16!=0 poisson_2d(17)").goff[-1]) % 16 != 0
+    blocks = compact("T%16!=0 poisson_2d(17)").blocks
+    assert int(blocks.flatten(1).any(dim=1).sum()) % 16 != 0
     assert compact("C=1 poisson_2d(9)").n_col_blocks == 1
     assert compact("C=547 64x70000").n_col_blocks == 547
-    goff = compact("empty row group").goff
-    assert goff[1] == goff[2]
+    assert not bool((compact("empty row group").gids == 1).any())
 
 
 @pytest.mark.parametrize("case", sorted(EDGE))
@@ -323,12 +335,12 @@ def test_variant_kernels_match_plain_on_card(case, cuda_device):
         assert ops.LAUNCHES[k] == before[k] + 1
     # K7 and K8 count under their own names, not under the SELL kernel's.
     assert spmv_sell.LAUNCHES["sell_f32"] == sell_before
-    # K6 walks sorted ranges with no atomics: bitwise repeatable.
-    assert torch.equal(ops.spmv_bsr_compact(C, x), ops.spmv_bsr_compact(C, x))
-    # K7 and K8 run the SELL f32 kernel over a packed form equal to the
-    # CSR's SELL layout: spmv_sell's result bit for bit, and repeatable.
+    # K6, K7 and K8 run the SELL f32 kernel over a packed form equal to
+    # the CSR's SELL layout: spmv_sell's result bit for bit, and repeatable.
     ref_y = spmv_sell.spmv_sell(SellMatrix.from_csr(A, device=cuda_device), x)
-    for variant in ("selector", "onehot"):
-        y = ops.spmv_bsr(B, x, variant=variant)
+    for fn in (lambda: ops.spmv_bsr_compact(C, x),
+               lambda: ops.spmv_bsr(B, x, variant="selector"),
+               lambda: ops.spmv_bsr(B, x, variant="onehot")):
+        y = fn()
         assert torch.equal(y, ref_y)
-        assert torch.equal(y, ops.spmv_bsr(B, x, variant=variant))
+        assert torch.equal(y, fn())
