@@ -120,6 +120,25 @@ Phases, each of which raises (exit code 1) on failure:
    (not a path: fp64 `gmres` delegates to `gmres_ir`): `gmres_loop` in
    f64 on `spmv_sell_f64`, true relres, inner iterations and solve
    seconds of each.
+16. The triangular-sweep kernel (`tri_sweep_f32`, `tri_sweep_f64`, one
+   launch per sweep) against its plain version (the JAX package's `_sweep`
+   in torch ops) on the IC(0) factor of RCM poisson_2d(512) and the AMD
+   sparse Cholesky factor of poisson_2d(512), in f32 and f64, and on the
+   IC(0) factor of RCM random_spd(6408, 23) in f64: each sweep within
+   1e-5·max|x| (f32) or 1e-12·max|x| (f64), bitwise repeatable, the apply
+   within 1e-4 (f32) or 1e-12 (f64) of the host's f64 `spchol.tri_solve`,
+   its error word clear and its claim counter back at 0; levels, ms per
+   sweep and per apply, µs per level, profiler device ms, the plain
+   version's ms, the bytes bound, cuSPARSE's SpSV
+   (`torch.triangular_solve` with a sparse CSR L, or why it is refused)
+   and the host solve's ms.
+17. The slice-10 paths through the CLI, each to true relres ≤ 1e-10: `cg_ir
+   --precond ic0` (RCM) on poisson_2d(512) (`tri_sweep_f32`, SELL f32 and
+   f64), fp64 `cg --precond ic0` (RCM) on random_spd(6408, 23)
+   (`tri_sweep_f64`, SELL f64), `sparse_cholesky --opt schedule=level
+   --ordering amd` on poisson_2d(512) (`tri_sweep_f32`, SELL f64) and
+   `cholesky_band` (RCM) on both matrices (SELL f64, no sweep launch); the
+   n=262k runs with one trial and one warm-up.
 
 Each path's launch counts are read from counters set to 0 just before it.
 Beside each kernel's times the record carries the bound of its function
@@ -154,6 +173,10 @@ BSR_SOURCE = "lsbench_tpu_torch/csrc/bsr_spmv.cu"
 WELL_SOURCE = "lsbench_tpu_torch/csrc/well_spmv.cu"
 SELL_SOURCE = "lsbench_tpu_torch/csrc/sell_spmv.cu"
 SELL_SPMM_SOURCE = "lsbench_tpu_torch/csrc/sell_spmm.cu"
+TRI_SOURCE = "lsbench_tpu_torch/csrc/tri_sweep.cu"
+# The triangular sweep has no Pallas kernel: the JAX package scans it.
+TRI_REPLACES = ("lsbench_tpu/solvers/sparse_cholesky.py:342 (XLA lax.scan, "
+                "no Pallas)")
 # Kernel name → (launch counter, source, TPU kernel it replaces).
 KERNELS = {
     "spmv_bsr_f32": ("bsr_f32", BSR_SOURCE,
@@ -181,6 +204,9 @@ KERNELS = {
     # The redesign of K3 for the multi-RHS solver paths.
     "spmm_sell_f32": ("sell_mm_f32", SELL_SPMM_SOURCE,
                       "lsbench_tpu/ops/spmv_pallas.py:255"),
+    # One sparse triangular sweep per launch: IC(0) and the level schedule.
+    "tri_sweep_f32": ("tri_sweep_f32", TRI_SOURCE, TRI_REPLACES),
+    "tri_sweep_f64": ("tri_sweep_f64", TRI_SOURCE, TRI_REPLACES),
 }
 # The main-path runs whose launch counts the record lists, in order.
 PATHS = ("cg_ir poisson_2d(512) + random_spd(6408,23)",
@@ -202,7 +228,12 @@ PATHS = ("cg_ir poisson_2d(512) + random_spd(6408,23)",
          "gmres random_spd(6408,23)",
          "gmres --precision fp32 random_spd(6408,23)",
          "cg_ir --precond chebyshev poisson_2d(512)",
-         "cg_ir --precond block_jacobi poisson_2d(512)")
+         "cg_ir --precond block_jacobi poisson_2d(512)",
+         "cg_ir --precond ic0 poisson_2d(512)",
+         "cg --precond ic0 random_spd(6408,23)",
+         "sparse_cholesky --opt schedule=level --ordering amd poisson_2d(512)",
+         "cholesky_band random_spd(6408,23)",
+         "cholesky_band poisson_2d(512)")
 # H100 SXM data sheet: HBM3 rate, and peak rates outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
@@ -841,15 +872,19 @@ def main_path_phase(matrices) -> dict:
 
 
 def reset_counts() -> None:
-    from lsbench_tpu_torch.ops import interp_well, spmv_bsr, spmv_sell
+    from lsbench_tpu_torch.ops import (interp_well, spmv_bsr, spmv_sell,
+                                       tri_sweep)
     spmv_bsr.reset_launches()
     interp_well.reset_launches()
     spmv_sell.reset_launches()
+    tri_sweep.reset_launches()
 
 
 def read_counts() -> dict:
-    from lsbench_tpu_torch.ops import interp_well, spmv_bsr, spmv_sell
-    return {**spmv_bsr.LAUNCHES, **interp_well.LAUNCHES, **spmv_sell.LAUNCHES}
+    from lsbench_tpu_torch.ops import (interp_well, spmv_bsr, spmv_sell,
+                                       tri_sweep)
+    return {**spmv_bsr.LAUNCHES, **interp_well.LAUNCHES, **spmv_sell.LAUNCHES,
+            **tri_sweep.LAUNCHES}
 
 
 def _op_summary(op) -> str:
@@ -1794,6 +1829,261 @@ def fp64_gmres_measurement(A) -> dict:
     return out
 
 
+def spsv_ms(cp, ci, cx, b, lower: bool) -> tuple[float | None, str]:
+    """Median time of cuSPARSE's triangular solve (`torch.triangular_solve`
+    with L, or Lᵀ, as a sparse CSR tensor on the card) on one sweep of b:
+    the library call computing the kernel's function, timed only. Returns
+    (None, why) where the build refuses the call."""
+    import warnings
+
+    import torch
+    n = len(cp) - 1
+    col_of = np.repeat(np.arange(n), np.diff(cp))
+    if lower:  # CSR of L: the CSC entries sorted by row
+        order = np.lexsort((col_of, ci))
+        rows, cols, vals = ci[order], col_of[order], cx[order]
+        offs = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(np.bincount(rows, minlength=n), out=offs[1:])
+    else:  # CSR of Lᵀ is L's CSC
+        offs, cols, vals = cp, ci, cx
+    dev = b.device
+    try:
+        with warnings.catch_warnings():  # "sparse CSR support is in beta"
+            warnings.simplefilter("ignore")
+            M = torch.sparse_csr_tensor(
+                torch.as_tensor(offs, dtype=torch.int64, device=dev),
+                torch.as_tensor(cols, dtype=torch.int64, device=dev),
+                torch.as_tensor(vals, dtype=b.dtype, device=dev),
+                size=(n, n))
+            b2 = b[:, None]
+            torch.triangular_solve(b2, M, upper=not lower)
+            return median_ms(lambda: torch.triangular_solve(
+                b2, M, upper=not lower)), ""
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+
+
+def tri_sweep_phase(matrices) -> dict:
+    """The triangular-sweep kernel against its plain version (the JAX
+    package's `_sweep` in torch ops) on the factors the new paths sweep:
+    the IC(0) factor of RCM poisson_2d(512) (f32: `cg_ir --precond ic0`;
+    f64 too), the AMD sparse Cholesky factor of poisson_2d(512) (f32: the
+    `level` schedule; f64 too) and the IC(0) factor of RCM
+    random_spd(6408,23) (f64: `cg --precond ic0`). Each sweep within
+    1e-5·max|x| (f32) or 1e-12·max|x| (f64) of the plain version, bitwise
+    repeatable, its error word clear and its claim counter back at 0.
+    Prints the wrapper's CUDA-event ms per sweep and per apply, the
+    profiler's device ms, levels and µs per level, the plain version's ms,
+    the bytes bound (each factor entry, b, x and dinv read or written
+    once, ÷ 3.35 TB/s), cuSPARSE's SpSV (`torch.triangular_solve` with a
+    sparse CSR L) and the host's native `spchol.tri_solve` on the same
+    factor. Returns the record entries."""
+    import torch
+
+    from lsbench_tpu_torch.native import spchol
+    from lsbench_tpu_torch.ops import tri_sweep as ts
+    from lsbench_tpu_torch.ordering import get_ordering
+    from lsbench_tpu_torch.solvers import sparse_cholesky as sc
+    from lsbench_tpu_torch.solvers.ic0 import ic0_factor
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    A512, rspd = matrices["poisson_2d(512)"], matrices["random_spd(6408,23)"]
+
+    def ic0_of(A, ordering):
+        return ic0_factor(A.permuted(get_ordering(ordering, A)))
+
+    def amd_factor(A):
+        As = sc.symmetrize(A.permuted(get_ordering("amd", A)))
+        return sc.numeric_factor(As, *sc.symbolic_rows(
+            As, sc.elimination_tree(As)))
+
+    cases = (  # (label, factor, dtypes, record key)
+        ("IC(0) poisson_2d(512) RCM", lambda: ic0_of(A512, "rcm"),
+         (torch.float32, torch.float64), None),
+        ("AMD factor poisson_2d(512)", lambda: amd_factor(A512),
+         (torch.float32, torch.float64), "amd_factor"),
+        ("IC(0) random_spd(6408,23) RCM", lambda: ic0_of(rspd, "rcm"),
+         (torch.float64,), "random_spd(6408,23)"))
+    results = {}
+    for label, make, dtypes, key in cases:
+        t0 = time.perf_counter()
+        cp, ci, cx = make()
+        factor_s = time.perf_counter() - t0
+        n = len(cp) - 1
+        t0 = time.perf_counter()
+        host, meta = sc.pack_tri_host(cp, ci, cx, n)
+        pack_s = time.perf_counter() - t0
+        b_np = rng.standard_normal(n)
+        host_x = spchol.tri_solve(cp, ci, cx, b_np)
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            spchol.tri_solve(cp, ci, cx, b_np)
+            walls.append(time.perf_counter() - t0)
+        host_ms = float(np.median(walls)) * 1e3
+        nnz = int(cp[-1]) - n
+        print(f"tri sweep [{label}]: n={n} strict-lower nnz={nnz} "
+              f"nlev_f={meta['nlev_f']} nlev_b={meta['nlev_b']} segments="
+              f"{meta['n_segments']} pad_waste={meta['waste']:.4f} "
+              f"factor_s={factor_s:.2f} pack_tri_host_s={pack_s:.2f} host "
+              f"spchol.tri_solve {host_ms:.4f} ms per apply (both sweeps)")
+        for dtype in dtypes:
+            f64 = dtype == torch.float64
+            name = "tri_sweep_f64" if f64 else "tri_sweep_f32"
+            tag = f"{name} [{label}]"
+            t0 = time.perf_counter()
+            state = sc.upload_tri(host, dtype, dev, plain=True)
+            torch.cuda.synchronize()
+            upload_s = time.perf_counter() - t0
+            b = torch.as_tensor(b_np, dtype=dtype, device=dev)
+            errs = {}
+            for sweep, S in (("f", state.f), ("b", state.b)):
+                x_k, x_again = ts.tri_sweep(S, b), ts.tri_sweep(S, b)
+                x_p = ts.tri_sweep_plain(S, b)
+                torch.cuda.synchronize()
+                check(x_k.shape == (n,) and bool(torch.isfinite(x_k).all()),
+                      f"{tag} {sweep}: bad output")
+                check(torch.equal(x_k, x_again),
+                      f"{tag} {sweep}: not bitwise repeatable")
+                err = float((x_k - x_p).abs().max())
+                tol = (1e-12 if f64 else 1e-5) * float(x_p.abs().max())
+                check(err <= tol, f"{tag} {sweep}: max|kernel - plain| = "
+                                  f"{err:.3e} > {tol:.3e}")
+                errs[sweep] = err
+            state.check()
+            check(int(state.f.ctl[0]) == int(state.b.ctl[0]) == 0,
+                  f"{tag}: claim counter not back at 0")
+            x = sc.apply_tri(state, b).double().cpu().numpy()
+            apply_err = float(np.abs(x - host_x).max() / np.abs(host_x).max())
+            check(apply_err <= (1e-12 if f64 else 1e-4),
+                  f"{tag}: apply vs host f64 tri_solve {apply_err:.3e}")
+            ms_f = median_ms(lambda: ts.tri_sweep(state.f, b))
+            ms_b = median_ms(lambda: ts.tri_sweep(state.b, b))
+            ms_apply = median_ms(lambda: sc.apply_tri(state, b))
+            plain_ms = median_ms(lambda: ts.tri_sweep_plain(state.f, b),
+                                 reps=5)
+            dev_ms = profiled_kernel_ms(ts.tri_sweep, (state.f, b),
+                                        "tri_sweep_kernel", launches=20)
+            vb = 8 if f64 else 4
+            nbytes = nnz * (vb + 4) + 3 * n * vb
+            b_ms, b_by = bound(nbytes, 2 * nnz + 2 * n, "f64" if f64 else "f32")
+            lib_f, why_f = spsv_ms(cp, ci, cx, b, lower=True)
+            lib_b, why_b = spsv_ms(cp, ci, cx, b, lower=False)
+            print(f"kernel {tag}: max_abs_err f={errs['f']:.3e} b="
+                  f"{errs['b']:.3e} (apply vs host f64 {apply_err:.3e}) "
+                  f"upload_s={upload_s:.2f}; wrapper forward {ms_f:.4f} ms "
+                  f"({ms_f * 1e3 / meta['nlev_f']:.3f} us per level), "
+                  f"backward {ms_b:.4f} ms "
+                  f"({ms_b * 1e3 / meta['nlev_b']:.3f} us per level), apply "
+                  f"{ms_apply:.4f} ms; device (profiler) forward "
+                  f"{_fmt(dev_ms)} ms; plain forward {plain_ms:.4f} ms")
+            print(f"  bound {b_ms:.4f} ms ({b_by}, {nbytes} B); cuSPARSE "
+                  f"SpSV forward {_fmt(lib_f)} ms{' ' + why_f if why_f else ''}"
+                  f", backward {_fmt(lib_b)} ms{' ' + why_b if why_b else ''}"
+                  f"; host spchol.tri_solve {host_ms:.4f} ms per apply")
+            times = dict(max_abs_err=max(errs.values()), ms=ms_f,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_f, shape=f"{label} forward sweep",
+                         backward_ms=ms_b, apply_ms=ms_apply,
+                         device_ms_profiler=dev_ms,
+                         nlev=(meta["nlev_f"], meta["nlev_b"]),
+                         us_per_level=ms_f * 1e3 / meta["nlev_f"],
+                         library_backward_ms=lib_b,
+                         host_tri_solve_ms=host_ms)
+            if lib_f is None:
+                times["library_note"] = why_f
+            entry = results.setdefault(name, {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       times["max_abs_err"])
+            if key is None:
+                entry.update(times)
+            else:
+                entry[key] = times
+            del state, b
+        torch.cuda.empty_cache()
+    return results
+
+
+def tri_paths_phase(tmp: str, matrices) -> list[dict]:
+    """The slice-10 paths through the CLI: `cg_ir --precond ic0` on RCM
+    poisson_2d(512) (f32 sweeps), fp64 `cg --precond ic0` on RCM
+    random_spd(6408,23) (f64 sweeps, SELL f64 SpMV), `sparse_cholesky --opt
+    schedule=level --ordering amd` on poisson_2d(512) (f32 sweeps refined
+    by the SELL f64 residual) and `cholesky_band` (RCM) on both matrices
+    (f32 band factor, SELL f64 residual); each to true relres ≤ 1e-10. The
+    n=262k runs take one trial and one warm-up. Returns each path's
+    launch counts."""
+    from lsbench_tpu_torch.matrix.io import write_matrix
+
+    files = {}
+    for label, A in matrices.items():
+        files[label] = os.path.join(tmp, label.split("(")[0] + "_tri.txt")
+        write_matrix(A, files[label])
+    one = ["--trials", "1", "--warmups", "1"]
+    two = ["--trials", "2", "--warmups", "1"]
+    runs = (  # (path, matrix, argv, precision, kernels that must run)
+        ("cg_ir --precond ic0", "poisson_2d(512)",
+         ["--solver", "cg_ir", "--precond", "ic0", "--ordering", "rcm",
+          *one], "fp64", ("tri_sweep_f32", "sell_f32", "sell_f64")),
+        ("cg --precond ic0", "random_spd(6408,23)",
+         ["--solver", "cg", "--precond", "ic0", "--ordering", "rcm", *two],
+         "fp64", ("tri_sweep_f64", "sell_f64")),
+        ("sparse_cholesky --opt schedule=level --ordering amd",
+         "poisson_2d(512)",
+         ["--solver", "sparse_cholesky", "--opt", "schedule=level",
+          "--ordering", "amd", *one], "fp64(fp32_ir_auto)",
+         ("tri_sweep_f32", "sell_f64")),
+        ("cholesky_band", "random_spd(6408,23)",
+         ["--solver", "cholesky_band", "--ordering", "rcm", *two],
+         "fp64(fp32_ir_auto)", ("sell_f64",)),
+        ("cholesky_band", "poisson_2d(512)",
+         ["--solver", "cholesky_band", "--ordering", "rcm", *one],
+         "fp64(fp32_ir_auto)", ("sell_f64",)))
+    counts = []
+    for path, matrix, argv, precision, expect in runs:
+        label = f"{path} {matrix}"
+        t0 = time.perf_counter()
+        rec, ran, wall = cli_path(label, files[matrix],
+                                  [*argv, "--rtol", "1e-10", "--json"])
+        check(rec["solver"] == argv[1], f"{label}: solver {rec['solver']}")
+        check(rec["precision"] == precision,
+              f"{label}: precision {rec['precision']}")
+        check(rec["converged"] is True and rec["true_relres"] <= 1e-10,
+              f"{label}: converged {rec['converged']} true_relres "
+              f"{rec['true_relres']:.3e}")
+        for k in expect:
+            check(ran[k] > 0, f"{label}: kernel {k} never launched {ran}")
+        check(ran["bsr_f32"] == ran["bsr_classed_f32"] == ran["bsr_f64acc"]
+              == 0, f"{label}: a BSR kernel launched {ran}")
+        if argv[1] == "cholesky_band":
+            check(ran["tri_sweep_f32"] == ran["tri_sweep_f64"] == 0,
+                  f"{label}: the band solve launched a sweep {ran}")
+        bd = rec["setup_breakdown"]
+        detail = {"cg_ir": f"precond_s={bd.get('precond_s', 0):.3f}",
+                  "cg": f"precond_s={bd.get('precond_s', 0):.3f}",
+                  "sparse_cholesky":
+                      f"fill_nnz={rec.get('fill_nnz')} levels="
+                      f"{rec.get('levels')} pad_waste="
+                      f"{rec.get('pad_waste', 0):.4f} ordering_s="
+                      f"{bd.get('ordering_s', 0):.3f} symbolic_s="
+                      f"{bd.get('symbolic_s', 0):.3f} factor_s="
+                      f"{bd.get('factor_s', 0):.3f} level_build_s="
+                      f"{bd.get('level_build_s', 0):.3f}",
+                  "cholesky_band":
+                      f"bandwidth={rec.get('bandwidth')} layout_s="
+                      f"{bd.get('layout_s', 0):.3f} factor_s="
+                      f"{bd.get('factor_s', 0):.3f}"}[argv[1]]
+        print(f"{label} path: iters={rec['iters']} passes="
+              f"{rec.get('refine_passes')} precision={rec['precision']} "
+              f"true_relres={rec['true_relres']:.3e} setup_s="
+              f"{rec['setup_s']:.3f} ({detail}) solve_s={rec['solve_s']:.4f} "
+              f"first_call_s={rec['first_call_s']:.3f} cli_wall_s={wall:.2f} "
+              f"launches={ran} phase_s={time.perf_counter() - t0:.2f}")
+        counts.append(ran)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1856,6 +2146,13 @@ def main() -> int:
     fp64 = fp64_gmres_measurement(matrices["random_spd(6408,23)"])
     print("fp64 gmres vs gmres_ir: " + json.dumps(fp64))
     print(f"phase fp64 gmres vs gmres_ir: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    measured.update(tri_sweep_phase(matrices))
+    print(f"phase tri sweep kernel: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path_counts += tri_paths_phase(tmp, matrices)
+    print(f"phase ic0, level and band paths: {time.perf_counter() - t0:.2f} s")
     check(len(path_counts) == len(PATHS), "one launch count per path")
 
     kernels = []
@@ -1882,7 +2179,14 @@ def main() -> int:
                                              "device_ops_per_call",
                                              "random_spd(6408,23)",
                                              "amg_level1_a",
-                                             "sell_same_operator")
+                                             "sell_same_operator",
+                                             "backward_ms", "apply_ms",
+                                             "device_ms_profiler", "nlev",
+                                             "us_per_level",
+                                             "library_backward_ms",
+                                             "library_note",
+                                             "host_tri_solve_ms",
+                                             "amd_factor")
                            if k in m}})
     print(f"total: {time.perf_counter() - t_start:.2f} s")
     print("paths: " + json.dumps(PATHS))

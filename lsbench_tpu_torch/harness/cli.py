@@ -44,8 +44,8 @@ _NOT_PORTED = (("devices", "--devices"), ("mesh", "--mesh"),
                ("coordinator", "--coordinator"),
                ("debug_nans", "--debug-nans"))
 # Solvers of the JAX package's registry that are not ported yet: refused,
-# where an unknown name would fall back to the default solver.
-_NOT_PORTED_SOLVERS = ("cholesky_band",)
+# where an unknown name would fall back to the default solver. None.
+_NOT_PORTED_SOLVERS = ()
 
 
 # The reference defaults to its CHOLMOD backend (CMakeLists.txt:5): here the
@@ -72,7 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--precond", default=None,
                    help="override preconditioner "
                         "(none|jacobi|block_jacobi|chebyshev|amg|"
-                        "amg_classical)")
+                        "amg_classical|ic0)")
     p.add_argument("--nrhs", type=int, default=1,
                    help="solve this many right-hand sides at once (cg "
                         "family routes to block_cg, bicgstab/ginkgo to "

@@ -4,10 +4,11 @@
 
 For each case (RCM-ordered poisson_2d(512) and random_spd(6408, 23) with
 the Jacobi preconditioner, and poisson_2d(512) with `amg_classical`,
-`chebyshev` and `block_jacobi`; cg_ir, rtol 1e-10, b[i] = i; gmres_ir
-(what fp64 `gmres` runs) with `amg_classical` on poisson_2d(512); then
+`chebyshev`, `block_jacobi` and `ic0`; cg_ir, rtol 1e-10, b[i] = i;
+gmres_ir (what fp64 `gmres` runs) with `amg_classical` on poisson_2d(512);
 block CG (rtol 1e-10) and batched BiCGSTAB (`ginkgo`'s rtol 1e-4) on RCM
-poisson_2d(512) with `--nrhs 8`'s right-hand sides — the solves
+poisson_2d(512) with `--nrhs 8`'s right-hand sides; sparse_cholesky's
+`level` schedule on AMD-ordered poisson_2d(512) — the solves
 chip_smoke.py drives through the CLI):
 
 1. set the solver up and solve once (kernel build, first launches);
@@ -50,6 +51,7 @@ from lsbench_tpu_torch.matrix.generate import poisson_2d, random_spd
 from lsbench_tpu_torch.solvers.batched_bicgstab import BatchedBicgstabSolver
 from lsbench_tpu_torch.solvers.block_cg import BlockCgSolver
 from lsbench_tpu_torch.solvers.refine import CgIrSolver, GmresIrSolver
+from lsbench_tpu_torch.solvers.sparse_cholesky import SparseCholeskySolver
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # Substrings of the inner f32 SpMV kernels' names in the trace: K1, the
@@ -65,6 +67,7 @@ GROUPS = (
     ("K2 f64acc", ("spmv_bsr_f64acc_kernel",)),
     ("K1/K5 spmv", ("spmv_bsr_f32_kernel", "spmv_bsr_classed_f32_kernel")),
     ("K4 well", ("spmv_well",)),
+    ("tri sweep", ("tri_sweep_kernel",)),
     ("eigh", ("syev", "stedc", "sytrd", "steqr", "eigh")),
     ("QR", ("geqr", "orgqr", "ormqr", "larf", "householder")),
     ("cuSOLVER other", ("cusolver", "potrf", "trsm", "trsv", "lacpy",
@@ -114,12 +117,14 @@ def _union_us(events: list[dict]) -> float:
 
 
 def profile_matrix(label: str, A, device, precond: str = "jacobi",
-                   nrhs: int = 1, solver_cls=None, rtol: float = 1e-10) -> dict:
+                   nrhs: int = 1, solver_cls=None, rtol: float = 1e-10,
+                   **solver_kw) -> dict:
     b = torch.as_tensor(reference_rhs(A.nrows, nrhs), device=device)
     t0 = time.perf_counter()
     solver_cls = solver_cls or (BlockCgSolver if nrhs > 1 else CgIrSolver)
-    solver = solver_cls(A, rtol=rtol, ordering="rcm", precond=precond,
-                        device=device)
+    solver_kw.setdefault("ordering", "rcm")
+    solver = solver_cls(A, rtol=rtol, precond=precond, device=device,
+                        **solver_kw)
     setup_s = time.perf_counter() - t0
     _timed_solve(solver, b)
     walls, res = [], None
@@ -159,8 +164,9 @@ def profile_matrix(label: str, A, device, precond: str = "jacobi",
         "matrix": label, "solver": solver_cls.__name__, "precond": precond,
         "nrhs": nrhs, "n": A.nrows,
         "nnz": A.nnz, "iters": res.iters,
-        "passes": res.extra["refine_passes"],
-        "inner_op": type(solver._op).__name__, "setup_s": setup_s,
+        "passes": res.extra.get("refine_passes"), **solver_kw,
+        "inner_op": type(getattr(solver, "_op", None)).__name__,
+        "setup_s": setup_s,
         "wall_s": wall_s, "walls_s": walls, "profiled_wall_s": prof_wall,
         "busy_s": busy_s, "idle_share": 1.0 - busy_s / wall_s,
         "groups": dict(sorted(groups.items(),
@@ -196,6 +202,10 @@ def main(argv=None) -> int:
             ("poisson_2d(512)", p512, "amg_classical", 1, {}),
             ("poisson_2d(512)", p512, "chebyshev", 1, {}),
             ("poisson_2d(512)", p512, "block_jacobi", 1, {}),
+            ("poisson_2d(512)", p512, "ic0", 1, {}),
+            ("poisson_2d(512)", p512, "none", 1,
+             {"solver_cls": SparseCholeskySolver, "ordering": "amd",
+              "schedule": "level"}),
             ("poisson_2d(512)", p512, "amg_classical", 1,
              {"solver_cls": GmresIrSolver}),
             ("poisson_2d(512)", p512, "jacobi", 8, {}),

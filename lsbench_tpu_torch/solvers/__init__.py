@@ -8,6 +8,7 @@ from lsbench_tpu_torch.solvers import gmres  # noqa: F401
 from lsbench_tpu_torch.solvers import refine  # noqa: F401
 from lsbench_tpu_torch.solvers import direct  # noqa: F401
 from lsbench_tpu_torch.solvers import sparse_cholesky  # noqa: F401
+from lsbench_tpu_torch.solvers import band_cholesky  # noqa: F401
 from lsbench_tpu_torch.solvers import amg  # noqa: F401
 from lsbench_tpu_torch.solvers import batched_bicgstab  # noqa: F401
 from lsbench_tpu_torch.solvers import block_cg  # noqa: F401

@@ -38,9 +38,9 @@ class BatchedBicgstabSolver(MultiRhsIrSolver):
         super().__init__(A, rtol, min(float(inner_rtol), float(rtol) * 0.1),
                          maxiter, max_refine, ordering, device, **params)
         t0 = time.perf_counter()
-        state, papply = get_preconditioner(precond)(
+        self._pstate, papply = get_preconditioner(precond)(
             self._Ap, torch.float32, self.device, **(precond_params or {}))
-        self._pc_cols = column_precond(precond, state, papply)
+        self._pc_cols = column_precond(precond, self._pstate, papply)
         self.setup_breakdown["precond_s"] = time.perf_counter() - t0
 
     def _inner_loop(self, R32):

@@ -36,7 +36,8 @@ from lsbench_tpu_torch.matrix.sell import SellMatrix
 from lsbench_tpu_torch.ops.spmv_sell import spmm_sell
 from lsbench_tpu_torch.solvers.base import SolveResult, Solver, register_solver
 from lsbench_tpu_torch.solvers.cg import full_f32, permutation
-from lsbench_tpu_torch.solvers.preconditioners import get_preconditioner
+from lsbench_tpu_torch.solvers.preconditioners import (check as check_precond,
+                                                       get_preconditioner)
 from lsbench_tpu_torch.solvers.refine import f64_residual_matvec
 
 
@@ -175,6 +176,7 @@ class MultiRhsIrSolver(Solver):
         self.maxiter = (int(maxiter) if maxiter is not None
                         else max(10 * A.nrows, 1000))
         self.max_refine = int(max_refine)
+        self._pstate = None  # the preconditioner's state, where it has one
 
         t0 = time.perf_counter()
         self._Ap, self._perm, self._inv = permutation(ordering, A, self.device)
@@ -221,6 +223,7 @@ class MultiRhsIrSolver(Solver):
             rr = _cdots(R, R)
             iters += inner_iters
             passes += 1
+        check_precond(self._pstate)
         if self._inv is not None:
             X = X[self._inv]
         rnorm = np.sqrt(rr.cpu().numpy())
@@ -274,10 +277,10 @@ class BlockCgSolver(MultiRhsIrSolver):
             self._ihalf = torch.as_tensor(ih, dtype=torch.float32,
                                           device=self.device)
         else:
-            state, papply = get_preconditioner(precond)(
+            self._pstate, papply = get_preconditioner(precond)(
                 self._Ap, torch.float32, self.device,
                 **(precond_params or {}))
-            self._pc_cols = column_precond(precond, state, papply)
+            self._pc_cols = column_precond(precond, self._pstate, papply)
         self.setup_breakdown["precond_s"] = time.perf_counter() - t0
 
     def _inner_loop(self, R32):

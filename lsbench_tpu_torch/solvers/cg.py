@@ -28,7 +28,8 @@ from lsbench_tpu_torch.ops.spmv import spmv_ell
 from lsbench_tpu_torch.ops.spmv_sell import spmv_sell, spmv_sell_f64
 from lsbench_tpu_torch.ordering import get_ordering
 from lsbench_tpu_torch.solvers.base import SolveResult, Solver, register_solver
-from lsbench_tpu_torch.solvers.preconditioners import get_preconditioner
+from lsbench_tpu_torch.solvers.preconditioners import (check as check_precond,
+                                                       get_preconditioner)
 from lsbench_tpu_torch.utils.precision import full_f32
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -169,6 +170,7 @@ class CgSolver(Solver):
         bp = b if self._perm is None else b[self._perm]
         x, iters, rnorm, bnorm = self._loop(self._mv, self._pc, bp, self.rtol,
                                             self.maxiter, self._dt)
+        check_precond(self._pstate)
         if self._inv is not None:
             x = x[self._inv]
         rnorm, bnorm = float(rnorm), float(bnorm)

@@ -1,10 +1,12 @@
 """Preconditioners for the Krylov solvers (counterpart of
 `lsbench_tpu/solvers/preconditioners.py`).
 
-A preconditioner is `(state, apply)` with `apply(state, r) -> z`. Ported:
-`none` (identity), `jacobi`, `block_jacobi`, `chebyshev`, and one AMG
-V-cycle (`amg`, `amg_classical`, `solvers/amg.py`); `ic0` is a ROADMAP
-Queue 1 item and raises NotImplementedError.
+A preconditioner is `(state, apply)` with `apply(state, r) -> z`: `none`
+(identity), `jacobi`, `block_jacobi`, `chebyshev`, one AMG V-cycle (`amg`,
+`amg_classical`, `solvers/amg.py`) and IC(0) (`ic0`, `solvers/ic0.py`),
+the JAX package's whole set. A solver calls `check(state)` once per
+solve: it raises if the preconditioner's kernel reported a fault on the
+card (IC(0)'s triangular sweeps).
 """
 
 from __future__ import annotations
@@ -100,6 +102,11 @@ def chebyshev_precond(A: CsrMatrix, dtype, device, degree: int = 4,
     return state, apply
 
 
+def _ic0_precond(A: CsrMatrix, dtype, device, **params):
+    from lsbench_tpu_torch.solvers.ic0 import ic0_precond
+    return ic0_precond(A, dtype, device, **params)
+
+
 def _amg_precond(A: CsrMatrix, dtype, device, **amg_params):
     from lsbench_tpu_torch.solvers.amg import amg_precond
     return amg_precond(A, dtype, device, **amg_params)
@@ -124,8 +131,18 @@ PRECONDITIONERS = {
     "chebyshev": chebyshev_precond,
     "amg": _amg_precond,
     "amg_classical": _amg_classical_precond,
+    "ic0": _ic0_precond,
 }
-NOT_PORTED = ("ic0",)
+# Names of the JAX package's preconditioners that are not ported yet: none.
+NOT_PORTED = ()
+
+
+def check(state) -> None:
+    """Raise if the preconditioner's device work reported a fault: a state
+    with a `check` method (IC(0)'s `TriPack`) reads its kernel's error word,
+    one device sync. Solvers call this once per solve."""
+    if hasattr(state, "check"):
+        state.check()
 
 
 def get_preconditioner(name: str):

@@ -28,7 +28,8 @@ from lsbench_tpu_torch.solvers.bicgstab import bicgstab_loop
 from lsbench_tpu_torch.solvers.cg import (build_matvec, cg_loop, permutation,
                                           resolve_layout)
 from lsbench_tpu_torch.solvers.gmres import gmres_loop, max_restarts_for
-from lsbench_tpu_torch.solvers.preconditioners import get_preconditioner
+from lsbench_tpu_torch.solvers.preconditioners import (check as check_precond,
+                                                       get_preconditioner)
 
 
 def f64_residual_matvec(Ap: CsrMatrix, op, device):
@@ -127,9 +128,9 @@ class KrylovIrSolver(Solver):
         self.setup_breakdown["layout_s"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        pstate, papply = get_preconditioner(precond)(
+        self._pstate, papply = get_preconditioner(precond)(
             Ap, torch.float32, self.device, **(precond_params or {}))
-        self._pc = lambda r: papply(pstate, r)
+        self._pc = lambda r: papply(self._pstate, r)
         self.setup_breakdown["precond_s"] = time.perf_counter() - t0
 
     def _inner_loop(self, mv32, pc, rhs32):
@@ -161,6 +162,7 @@ class KrylovIrSolver(Solver):
             rr = torch.dot(r, r)
             iters += inner_iters
             passes += 1
+        check_precond(self._pstate)
         if self._inv is not None:
             x = x[self._inv]
         rnorm, bnorm = float(torch.sqrt(rr)), float(bnorm)

@@ -24,14 +24,18 @@ The reference's default backend factors on the host CPU (CHOLMOD with
     and one (256,256)@(256,k) product in full f32. At fp64 the sweeps run
     in f32 and the f64 refinement residual is `spmv_sell_f64` (the JAX
     package's TPU branch, where `spmv_bsr_df64` had that place).
-  * "level": the JAX package's level-scheduled sweep, which is also
-    `ic0.py`'s apply machinery; it waits for ic0 (ROADMAP.md Queue 1) and
-    raises NotImplementedError.
+  * "level": the level-scheduled sweeps, also `ic0.py`'s apply. Each
+    sweep is one launch of the triangular-sweep kernel
+    (`ops/tri_sweep.py`, `csrc/tri_sweep.cu`) over the rows in dependency
+    level order, where the JAX package scans the levels (`_sweep`); fp64
+    sweeps in f32 with the `spmv_sell_f64` refinement residual, as
+    "block" does.
 """
 
 from __future__ import annotations
 
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -40,8 +44,10 @@ from lsbench_tpu_torch.matrix.csr import CsrMatrix
 from lsbench_tpu_torch.matrix.ell import EllMatrix
 from lsbench_tpu_torch.matrix.sell import SellMatrix
 from lsbench_tpu_torch.native import spchol
+from lsbench_tpu_torch.ops import tri_sweep
 from lsbench_tpu_torch.ops.spmv import spmv_ell
 from lsbench_tpu_torch.ops.spmv_sell import spmv_sell_f64
+from lsbench_tpu_torch.ops.tri_sweep import TriSweep
 from lsbench_tpu_torch.solvers.base import (SolveResult, Solver,
                                             register_solver, to_numpy,
                                             true_relres)
@@ -178,7 +184,7 @@ def numeric_factor(A: CsrMatrix, loffs: np.ndarray, lcols: np.ndarray
     return cp, ci, cx
 
 
-# ------------------------------------------ blocked (partitioned-inverse)
+# ---------------------------------------------------- level schedule
 
 def _level_schedule(n, row_offs, row_cols):
     """Dependency levels of a lower-triangular solve: level[i] =
@@ -207,6 +213,218 @@ def _segment_levels(sizes: np.ndarray, max_factor: float = 1.5):
     segs.append((start, len(sizes)))
     return segs
 
+
+def _pack_levels(n, row_offs, row_cols, row_vals, diag, level):
+    """The JAX package's padded level segments of one sweep, bit for bit,
+    as host arrays (f64 values): levels are grouped into contiguous runs of
+    similar size (`_segment_levels`) and each run is padded to its own
+    (T, R):
+      per segment: rows [L,R] (pad → dummy slot n), slot [L,T] (pad → R),
+                   cols/vals [L,T] (pad → col n, val 0), dinv [L,R]
+    Returns (flat arrays of the segments in order, [(L, T, R)] per segment,
+    total padded entries). They feed the plain version of the sweep; the
+    kernel reads `_kernel_rows`, built from the same arrays."""
+    nlev = int(level.max()) + 1 if n else 1
+    lens = np.diff(row_offs)
+    order = np.argsort(level, kind="stable")
+    lvl_sorted = level[order]
+    counts = np.bincount(lvl_sorted, minlength=nlev)
+    level_start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    slot_of_row = np.arange(n) - level_start[lvl_sorted]
+
+    lens_sorted = lens[order]
+    level_nnz = np.zeros(nlev, dtype=np.int64)
+    np.add.at(level_nnz, lvl_sorted, lens_sorted)
+    nnz_cum = np.cumsum(lens_sorted) - lens_sorted      # global excl. cumsum
+    level_nnz_start = np.zeros(nlev, dtype=np.int64)
+    np.cumsum(level_nnz, out=level_nnz_start[:])        # inclusive
+    level_nnz_start = np.concatenate([[0], level_nnz_start[:-1]])
+    t_off = nnz_cum - level_nnz_start[lvl_sorted]       # within-level offset
+
+    # Segment on the combined row + nnz footprint of each level.
+    segs = _segment_levels(level_nnz + counts)
+
+    row_cum = np.concatenate([[0], np.cumsum(counts)])  # rows before level l
+    segments, seg_R, total_padded = [], [], 0
+    for (l0, l1) in segs:
+        L = l1 - l0
+        T = max(1, int(level_nnz[l0:l1].max()))
+        R = max(1, int(counts[l0:l1].max()))
+        r_sel = slice(row_cum[l0], row_cum[l1])         # rows of these levels
+        lv_loc = lvl_sorted[r_sel] - l0
+        sl_loc = slot_of_row[r_sel]
+        rows = np.full((L, R), n, dtype=np.int32)
+        dinv = np.zeros((L, R))
+        rows[lv_loc, sl_loc] = order[r_sel]
+        dinv[lv_loc, sl_loc] = 1.0 / diag[order[r_sel]]
+
+        cols = np.full(L * T, n, dtype=np.int32)
+        vals = np.zeros(L * T)
+        slot = np.full(L * T, R, dtype=np.int32)
+        lens_seg = lens_sorted[r_sel]
+        total = int(lens_seg.sum())
+        if total:
+            nnz_cum_seg = nnz_cum[r_sel]
+            intra = (np.arange(total)
+                     - np.repeat(nnz_cum_seg - nnz_cum_seg[0], lens_seg))
+            dest = np.repeat(lv_loc * T + t_off[r_sel], lens_seg) + intra
+            src = np.repeat(row_offs[order[r_sel]], lens_seg) + intra
+            cols[dest] = row_cols[src]
+            vals[dest] = row_vals[src]
+            slot[dest] = np.repeat(sl_loc, lens_seg)
+        segments.append((rows, slot, cols, vals, dinv))
+        seg_R.append((L, T, R))
+        total_padded += L * T
+
+    flat = {"rows": np.concatenate([s[0].ravel() for s in segments]),
+            "slot": np.concatenate([s[1] for s in segments]),
+            "cols": np.concatenate([s[2] for s in segments]),
+            "vals": np.concatenate([s[3] for s in segments]),
+            "dinv": np.concatenate([s[4].ravel() for s in segments])}
+    return flat, seg_R, total_padded
+
+
+def _kernel_rows(n, row_offs, row_cols, row_vals, diag, level):
+    """The same sweep in the triangular-sweep kernel's layout
+    (`ops/tri_sweep.py::TriSweep`): rows in the segments' level order
+    (stable: ascending inside a level), their entries as CSR in that order,
+    `dinv` by position. No padding."""
+    order = np.argsort(level, kind="stable")
+    lens = np.diff(row_offs)[order]
+    offs = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lens, out=offs[1:])
+    src = np.repeat(row_offs[order] - offs[:-1], lens) + np.arange(offs[-1])
+    return {"perm": order.astype(np.int32), "offs": offs,
+            "cols": row_cols[src].astype(np.int32), "vals": row_vals[src],
+            "dinv": 1.0 / diag[order]}
+
+
+def _backward_rows(r, c, v, n):
+    """Rows of the backward (Lᵀ) sweep: row i references the js > i with
+    L[j,i] ≠ 0, i.e. column i of L without its diagonal."""
+    uoffs = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(c, minlength=n), out=uoffs[1:])
+    ord_u = np.lexsort((r, c))
+    ucols, uvals = r[ord_u], v[ord_u]
+    # Levels respect the reverse dependencies (row i needs rows j > i).
+    lev_b = np.zeros(n, dtype=np.int64)
+    for i in range(n - 1, -1, -1):
+        js = ucols[uoffs[i]:uoffs[i + 1]]
+        if js.size:
+            lev_b[i] = lev_b[js].max() + 1
+    return uoffs, ucols, uvals, lev_b
+
+
+def _sweep_rows(cp, ci, cx, n):
+    """The rows of both sweeps from CSC L (with its diagonal): the forward
+    rows (strictly-lower CSR of L, columns ascending) and the backward rows
+    (`_backward_rows`), each as (offs, cols, vals, level), and diag(L)."""
+    row_of = ci
+    col_of = np.repeat(np.arange(n), np.diff(cp))
+    off_diag = row_of != col_of
+    r, c, v = row_of[off_diag], col_of[off_diag], cx[off_diag]
+    diag = cx[cp[:-1]]
+
+    order = np.lexsort((c, r))
+    r_s, c_s, v_s = r[order], c[order], v[order]
+    roffs = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(r_s, minlength=n), out=roffs[1:])
+    lev_f = _level_schedule(n, roffs, c_s)
+    return (roffs, c_s, v_s, lev_f), _backward_rows(r, c, v, n), diag
+
+
+def pack_tri_host(cp, ci, cx, n):
+    """The host half of `pack_tri`: for the forward ("f") and backward
+    ("b") sweeps, (flat segment arrays, [(L, T, R)], kernel layout, level
+    count), and the JAX package's `meta`."""
+    fwd, bwd, diag = _sweep_rows(cp, ci, cx, n)
+    host, pads = {}, 0
+    for key, (offs, cols, vals, lev) in (("f", fwd), ("b", bwd)):
+        flat, seg_R, pad = _pack_levels(n, offs, cols, vals, diag, lev)
+        host[key] = (flat, seg_R,
+                     _kernel_rows(n, offs, cols, vals, diag, lev),
+                     int(lev.max()) + 1 if n else 1)
+        pads += pad
+    meta = {"nlev_f": host["f"][3], "nlev_b": host["b"][3],
+            "rs_f": host["f"][1], "rs_b": host["b"][1],
+            "n_segments": len(host["f"][1]) + len(host["b"][1]),
+            "waste": pads / max(1, 2 * (fwd[1].size + n))}
+    return host, meta
+
+
+def _plain_levels(flat, seg_R, dtype, device):
+    """Upload the padded segments and cut them into one (rows, slot, cols,
+    vals, dinv, R) view per level, the plain sweep's steps."""
+    dev = torch.device(device)
+    t = {k: torch.as_tensor(a, dtype=(dtype if k in ("vals", "dinv")
+                                      else torch.int64), device=dev)
+         for k, a in flat.items()}
+    levels, o_lr, o_lt = [], 0, 0
+    for L, T, R in seg_R:
+        rw = t["rows"][o_lr:o_lr + L * R].view(L, R)
+        di = t["dinv"][o_lr:o_lr + L * R].view(L, R)
+        sl = t["slot"][o_lt:o_lt + L * T].view(L, T)
+        cl = t["cols"][o_lt:o_lt + L * T].view(L, T)
+        vl = t["vals"][o_lt:o_lt + L * T].view(L, T)
+        levels += [(rw[l], sl[l], cl[l], vl[l], di[l], R) for l in range(L)]
+        o_lr += L * R
+        o_lt += L * T
+    return levels
+
+
+class TriPack(NamedTuple):
+    """Both sweeps of L Lᵀ, the state `apply_tri` takes."""
+    f: TriSweep
+    b: TriSweep
+
+    def check(self) -> None:
+        """Raise if a kernel launch on either sweep reported a fault (one
+        device sync): once per solve."""
+        tri_sweep.check(self.f, self.b)
+
+
+def upload_tri(host, dtype, device, plain=None) -> TriPack:
+    """Both sweeps of `pack_tri_host`'s arrays on `device` in `dtype`: the
+    kernel's layout and, with `plain` (the default on the CPU, where the
+    plain version runs), the padded level segments."""
+    plain = torch.device(device).type == "cpu" if plain is None else plain
+    sweeps = []
+    for key in ("f", "b"):
+        flat, seg_R, k, nlev = host[key]
+        levels = _plain_levels(flat, seg_R, dtype, device) if plain else None
+        sweeps.append(TriSweep.build(k["perm"], k["offs"], k["cols"],
+                                     k["vals"], k["dinv"], nlev, dtype,
+                                     device, levels))
+    return TriPack(*sweeps)
+
+
+def pack_tri(cp, ci, cx, n, dtype, device="cuda", plain=None):
+    """Pack CSC L (with its diagonal) into the forward and backward sweeps
+    on `device` (`upload_tri`). Returns (TriPack, meta)."""
+    host, meta = pack_tri_host(cp, ci, cx, n)
+    return upload_tri(host, dtype, device, plain), meta
+
+
+# The JAX package's name for one level-scheduled sweep: the kernel's wrapper
+# (`ops/tri_sweep.py`), which runs the plain `_sweep` on CPU tensors.
+_sweep = tri_sweep.tri_sweep
+
+
+def apply_tri(state: TriPack, b):
+    """x = (L Lᵀ)⁻¹ b through the two sweeps; b (n,) or (n, k), cast to
+    the pack's dtype (a strided column is copied)."""
+    b = b.to(state.f.dtype).contiguous()
+    return _sweep(state.b, _sweep(state.f, b))
+
+
+def build_level_solver(cp, ci, cx, n, dtype, device="cuda"):
+    """(state, apply, nlev_f, nlev_b, waste) with x = apply(state, b)
+    applying L then Lᵀ by the level schedule."""
+    state, meta = pack_tri(cp, ci, cx, n, dtype, device)
+    return state, apply_tri, meta["nlev_f"], meta["nlev_b"], meta["waste"]
+
+
+# ------------------------------------------ blocked (partitioned-inverse)
 
 def _pack_blocks(n, row_offs, row_cols, row_vals, diag, level, B):
     """The host arrays of one blocked sweep (the JAX package's, bit for bit).
@@ -332,40 +550,14 @@ def _sweep_blocks(sweep, n, B, bp):
     return x[:n]
 
 
-def _backward_rows(r, c, v, n):
-    """Rows of the backward (Lᵀ) sweep: row i references the js > i with
-    L[j,i] ≠ 0, i.e. column i of L without its diagonal."""
-    uoffs = np.zeros(n + 1, dtype=np.int64)
-    np.cumsum(np.bincount(c, minlength=n), out=uoffs[1:])
-    ord_u = np.lexsort((r, c))
-    ucols, uvals = r[ord_u], v[ord_u]
-    # Levels respect the reverse dependencies (row i needs rows j > i).
-    lev_b = np.zeros(n, dtype=np.int64)
-    for i in range(n - 1, -1, -1):
-        js = ucols[uoffs[i]:uoffs[i + 1]]
-        if js.size:
-            lev_b[i] = lev_b[js].max() + 1
-    return uoffs, ucols, uvals, lev_b
-
-
 def pack_tri_blocked_host(cp, ci, cx, n, block=256):
     """The host half of `pack_tri_blocked`: the forward and backward
     sweeps' compact arrays from CSC L. Returns ((host_f, seg_f),
     (host_b, seg_b), meta)."""
-    row_of = ci
-    col_of = np.repeat(np.arange(n), np.diff(cp))
-    off_diag = row_of != col_of
-    r, c, v = row_of[off_diag], col_of[off_diag], cx[off_diag]
-    diag = cx[cp[:-1]]
-
-    order = np.lexsort((c, r))
-    r_s, c_s, v_s = r[order], c[order], v[order]
-    roffs = np.zeros(n + 1, dtype=np.int64)
-    np.cumsum(np.bincount(r_s, minlength=n), out=roffs[1:])
-    lev_f = _level_schedule(n, roffs, c_s)
+    (roffs, c_s, v_s, lev_f), (uoffs, ucols, uvals, lev_b), diag = \
+        _sweep_rows(cp, ci, cx, n)
     host_f, seg_f, nb, waste_f = _pack_blocks(n, roffs, c_s, v_s, diag,
                                               lev_f, block)
-    uoffs, ucols, uvals, lev_b = _backward_rows(r, c, v, n)
     host_b, seg_b, _, waste_b = _pack_blocks(n, uoffs, ucols, uvals, diag,
                                              lev_b, block)
     meta = {"rs_f": seg_f, "rs_b": seg_b, "block": block, "nb": nb,
@@ -400,8 +592,8 @@ def apply_tri_blocked(state, b, *, n, block):
 @register_solver("sparse_cholesky")
 class SparseCholeskySolver(Solver):
     """Host symbolic and numeric sparse Cholesky (CHOLMOD's CPU split,
-    cholmod.c:68); triangular solves on the host or, by the blocked
-    schedule, on the device."""
+    cholmod.c:68); triangular solves on the host or, by the blocked or the
+    level schedule, on the device."""
 
     def __init__(self, A: CsrMatrix, dtype=torch.float64, ordering="amd",
                  rtol=1e-10, max_refine=12, schedule="auto", block=256,
@@ -414,12 +606,7 @@ class SparseCholeskySolver(Solver):
             # faster than either device schedule at n=262k, and it is where
             # the reference's default backend solves (cholmod.c:68).
             schedule = "host" if spchol.available() else "block"
-        if schedule == "level":
-            raise NotImplementedError(
-                "sparse_cholesky schedule 'level' is not yet ported to "
-                "lsbench_tpu_torch: it waits for ic0, whose apply it is "
-                "(ROADMAP.md Queue 1)")
-        if schedule not in ("block", "host"):
+        if schedule not in ("block", "level", "host"):
             raise ValueError(f"unknown schedule '{schedule}' (auto | block | "
                              "level | host)")
         self.schedule = schedule
@@ -429,15 +616,15 @@ class SparseCholeskySolver(Solver):
         self.rtol = float(rtol)
         self.max_refine = int(max_refine)
         n = A.nrows
-        # fp64 on the device schedule takes the JAX package's TPU branch on
+        # fp64 on a device schedule takes the JAX package's TPU branch on
         # every device: f32 sweeps refined by f64 residuals (the
         # `spmv_sell_f64` kernel), recorded as fp32_ir_auto.
-        self._ir = schedule == "block" and self.dtype == torch.float64
+        self._ir = schedule != "host" and self.dtype == torch.float64
 
         t0 = time.perf_counter()
         # The host schedule keeps everything, the permutation too, on the CPU.
         Ap, self._perm, self._inv = permutation(
-            ordering, A, self.device if schedule == "block" else "cpu")
+            ordering, A, "cpu" if schedule == "host" else self.device)
         self.setup_breakdown["ordering_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         As = symmetrize(Ap)
@@ -459,12 +646,16 @@ class SparseCholeskySolver(Solver):
             self._Ap_host = Ap
         else:
             sweep_dtype = torch.float32 if self._ir else self.dtype
-            self._tri, meta = pack_tri_blocked(cp, ci, cx, n, sweep_dtype,
-                                               block=block,
-                                               device=self.device)
-            self._block = meta["block"]
+            if schedule == "block":
+                self._tri, meta = pack_tri_blocked(
+                    cp, ci, cx, n, sweep_dtype, block=block,
+                    device=self.device)
+                self._block = meta["block"]
+                self.n_blocks = meta["nb"]
+            else:
+                self._tri, meta = pack_tri(cp, ci, cx, n, sweep_dtype,
+                                           self.device)
             self.n_levels_f, self.n_levels_b = meta["nlev_f"], meta["nlev_b"]
-            self.n_blocks = meta["nb"]
             self.pad_waste = meta["waste"]
             if self._ir:
                 op64 = SellMatrix.from_csr(Ap, dtypes=(torch.float64,),
@@ -479,6 +670,8 @@ class SparseCholeskySolver(Solver):
         self.setup_breakdown["level_build_s"] = time.perf_counter() - t0
 
     def _tri_apply(self, R: torch.Tensor) -> torch.Tensor:
+        if self.schedule == "level":
+            return apply_tri(self._tri, R)
         return apply_tri_blocked(self._tri, R, n=self.A.nrows,
                                  block=self._block)
 
@@ -502,9 +695,9 @@ class SparseCholeskySolver(Solver):
         return torch.from_numpy(x[:, 0] if squeeze else x)
 
     def _device_solve(self, b2: torch.Tensor) -> torch.Tensor:
-        """The blocked schedule with refinement (`refine_columns`) until
+        """A device schedule with refinement (`refine_columns`) until
         every column meets rtol or stops improving; b2 (n, k) on the
-        device. fp32_ir sweeps the f32 residual scaled to unit norm from
+        device. The level sweeps' error word is read once, at the end. fp32_ir sweeps the f32 residual scaled to unit norm from
         x = 0; otherwise the first sweep gives x and the refinement sweeps
         run in the solve's dtype."""
         bp = b2 if self._perm is None else b2[self._perm]
@@ -514,6 +707,8 @@ class SparseCholeskySolver(Solver):
         x, _, _, _ = refine_columns(bp, self._tri_apply, residual, self.rtol,
                                     self.max_refine, x=x0,
                                     unit_f32=self._ir)
+        if self.schedule == "level":
+            self._tri.check()
         return x if self._inv is None else x[self._inv]
 
     def _apply_solve(self, b):
@@ -529,7 +724,8 @@ class SparseCholeskySolver(Solver):
         relres = true_relres(self.A, x, b)
         extra = {"fill_nnz": self.fill_nnz, "schedule": self.schedule,
                  "blocks": self.n_blocks,
-                 "levels": (self.n_levels_f, self.n_levels_b)}
+                 "levels": (self.n_levels_f, self.n_levels_b),
+                 "pad_waste": self.pad_waste}
         if self._ir:
             extra["precision_mode"] = "fp32_ir_auto"
         return SolveResult(x=x, iters=1, relres=relres,

@@ -275,9 +275,6 @@ def test_missing_or_malformed_file(tmp_path, capsys, content):
     ["--roofline"],
     ["--profile-dir", "prof"], ["--cache"], ["--cache-dir", "c"],
     ["--coordinator", "localhost:1234"], ["--debug-nans"],
-    ["--solver", "cholesky_band"],
-    ["--solver", "sparse_cholesky", "--opt", "schedule=level"],
-    ["--solver", "cg", "--precond", "ic0"],
     ["--platform", "tpu"],
 ])
 def test_unported_flags_exit_1(tiny_matrix_file, capsys, flags):
@@ -289,6 +286,92 @@ def test_unported_flags_exit_1(tiny_matrix_file, capsys, flags):
     # refused as by the JAX CLI (test_block_cg.py::test_cli_nrhs_rejects_non_cg).
     assert ("not yet ported" in err or "Unsupported platform" in err
             or "--nrhs > 1 is implemented for" in err)
+
+
+@pytest.mark.parametrize("solver,extra,precision", [
+    ("cg", [], "fp64"),
+    ("cg_ir", [], "fp64"),
+    ("gmres", [], "fp64(fp32_ir_auto)"),
+    ("cg", ["--precision", "fp32", "--rtol", "1e-5"], "fp32"),
+])
+def test_ic0_precond_through_the_cli(poisson_file, capsys, solver, extra,
+                                     precision):
+    """`--precond ic0`, refused before slice 10, runs with the JAX CLI's
+    record: fewer iterations than Jacobi, to the requested tolerance."""
+    argv = ["--matrix", str(poisson_file), "--solver", solver, "--ordering",
+            "rcm", "--rtol", "1e-10", "--trials", "1", "--warmups", "1",
+            "--json", *extra]
+    rc, out, err = _run(main, argv + ["--precond", "ic0", "--platform",
+                                      "cpu"], capsys)
+    assert rc == 0, err
+    rec = json.loads(out[2])
+    assert out[1].split(",")[4:6] == [solver, "rcm"]
+    assert rec["precision"] == precision and rec["converged"] is True
+    if precision == "fp32":
+        # The f32 recurrence's residual meets rtol; the host f64 residual of
+        # the f32 x lies within 10x of it.
+        assert rec["relres"] <= 1e-5 and rec["true_relres"] <= 1e-4
+    else:
+        assert rec["true_relres"] <= 1e-10
+    _, j_out, _ = _run(main, argv + ["--precond", "jacobi", "--platform",
+                                     "cpu"], capsys)
+    assert rec["iters"] < json.loads(j_out[2])["iters"]
+    # The JAX CLI on the CPU runs fp64 gmres natively (its non-TPU branch),
+    # so only the solver and the outcome are compared.
+    j_rc, j_out, _ = _run(j_main, argv + ["--precond", "ic0"], capsys)
+    j_rec = json.loads(j_out[2])
+    assert j_rc == 0 and j_rec["solver"] == rec["solver"]
+    assert j_rec["converged"] is True
+
+
+@pytest.mark.parametrize("ordering", ["amd", "rcm"])
+def test_level_schedule_through_the_cli(poisson_file, capsys, ordering):
+    """`--solver sparse_cholesky --opt schedule=level`, refused before
+    slice 10: f32 level sweeps refined to 1e-10, recorded as
+    fp64(fp32_ir_auto) with the levels of both sweeps and the padding of
+    the plain version's segments. (`--nrhs` stays refused for
+    sparse_cholesky, as in the JAX CLI; the solver's own multi-RHS is
+    tests/test_torch_direct.py's.)"""
+    argv = ["--matrix", str(poisson_file), "--solver", "sparse_cholesky",
+            "--opt", "schedule=level", "--ordering", ordering, "--rtol",
+            "1e-10", "--trials", "1", "--warmups", "1", "--json"]
+    rc, out, err = _run(main, argv + ["--platform", "cpu"], capsys)
+    assert rc == 0, err
+    rec = json.loads(out[2])
+    j_rc, j_out, _ = _run(j_main, argv, capsys)
+    j_rec = json.loads(j_out[2])
+    assert j_rc == 0
+    assert rec["schedule"] == j_rec["schedule"] == "level"
+    assert rec["precision"] == "fp64(fp32_ir_auto)"
+    assert rec["levels"] == j_rec["levels"] and rec["levels"][0] > 1
+    assert rec["fill_nnz"] == j_rec["fill_nnz"] and rec["pad_waste"] > 0
+    assert rec["converged"] is True and rec["true_relres"] <= 1e-10
+    assert rec["setup_breakdown"]["level_build_s"] > 0
+
+
+@pytest.mark.parametrize("ordering", ["rcm", "none"])
+def test_cholesky_band_through_the_cli(poisson_file, capsys, ordering):
+    """`--solver cholesky_band`, refused before slice 10: the f32 band
+    factor refined to 1e-10, with the JAX CLI's solver name, bandwidth,
+    passes and precision label."""
+    argv = ["--matrix", str(poisson_file), "--solver", "cholesky_band",
+            "--ordering", ordering, "--trials", "1", "--warmups", "1",
+            "--json"]
+    rc, out, err = _run(main, argv + ["--platform", "cpu"], capsys)
+    assert rc == 0, err
+    rec = json.loads(out[2])
+    j_rc, j_out, _ = _run(j_main, argv, capsys)
+    j_rec = json.loads(j_out[2])
+    assert j_rc == 0 and out[1].split(",")[4:6] == ["cholesky_band", ordering]
+    for k in ("solver", "precision", "bandwidth", "refine_passes",
+              "converged"):
+        assert rec[k] == j_rec[k], k
+    assert rec["precision"] == "fp64(fp32_ir_auto)"
+    assert rec["true_relres"] <= 1e-10
+    # One right-hand side only, as in the JAX CLI.
+    rc, out, err = _run(main, argv + ["--nrhs", "2", "--platform", "cpu"],
+                        capsys)
+    assert rc == 1 and not out and "--nrhs > 1 is implemented for" in err
 
 
 def test_invalid_ordering_defaults_to_amd(tiny_matrix_file, capsys):

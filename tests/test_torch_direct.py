@@ -4,10 +4,13 @@ package's.
 
 Bars:
 - the host phases (symmetrization, elimination tree, symbolic rows, the
-  native and the Python numeric factor) and the blocked schedule's host
-  packing are bitwise equal to the JAX package's;
+  native and the Python numeric factor) and the blocked and level
+  schedules' host packing (`pack_tri_blocked_host`, `pack_tri`) are
+  bitwise equal to the JAX package's;
 - the blocked triangular apply (f32, plain PyTorch on the CPU) lies within
   1e-5·max|x| of the JAX apply, and its block inverses within 1e-5·max|W|;
+  the level apply (the plain sweeps) within 1e-12·max|x| in f64 and
+  1e-5·max|x| in f32;
 - every solve reaches true relres ≤ 1e-10 with x within 1e-9·‖x‖ of the
   JAX x (tests/test_dist_cg_ir.py's bar). The port's fp64 `cholesky` runs
   the JAX package's TPU branch (`cholesky_ir`), so it is held to the JAX
@@ -29,7 +32,7 @@ from lsbench_tpu.solvers.base import get_solver as j_get_solver
 
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
 from lsbench_tpu_torch.native import spchol
-from lsbench_tpu_torch.ops import spmv_sell
+from lsbench_tpu_torch.ops import spmv_sell, tri_sweep
 from lsbench_tpu_torch.solvers import get_solver
 from lsbench_tpu_torch.solvers import sparse_cholesky as tsc
 
@@ -181,12 +184,93 @@ def test_apply_tri_blocked_matches_jax(k):
     assert np.abs(x.numpy() - x_jax).max() <= 1e-5 * np.abs(x_jax).max()
 
 
+# ---------------------------------------------------------- level schedule
+
+@pytest.mark.parametrize("dtype", [jnp.float64, jnp.float32])
+@pytest.mark.parametrize("name,ordering", [("poisson_2d(24)", "amd"),
+                                           ("random_spd(300,9)", "rcm"),
+                                           ("poisson_2d(24)", "none")])
+def test_level_packing_bitwise_equal_jax(name, ordering, dtype):
+    """`pack_tri`'s host arrays (the padded level segments of both sweeps)
+    and its meta are the JAX package's; the plain version's per-level views
+    cut them as the JAX scan does."""
+    JA = MATRICES[name]()
+    cp, ci, cx = _factor(JA, ordering)
+    n = JA.nrows
+    host, meta = tsc.pack_tri_host(cp, ci, cx, n)
+    j_state, j_meta = jsc.pack_tri(cp, ci, cx, n, dtype)
+    assert meta == j_meta
+    for sweep in ("f", "b"):
+        flat, seg_R, _, nlev = host[sweep]
+        assert nlev == j_meta["nlev_" + sweep]
+        for key in ("rows", "slot", "cols", "vals", "dinv"):
+            mine = flat[key]
+            if key in ("vals", "dinv"):
+                mine = mine.astype(dtype)
+            np.testing.assert_array_equal(
+                mine, np.asarray(j_state[sweep][key]),
+                err_msg=f"{sweep} {key}")
+    state, meta2 = tsc.pack_tri(cp, ci, cx, n, torch.float64, CPU)
+    assert meta2 == meta
+    for S, key in ((state.f, "rs_f"), (state.b, "rs_b")):
+        assert len(S.levels) == sum(L for L, _, _ in meta[key])
+        assert [lv[5] for lv in S.levels] \
+            == [R for L, _, R in meta[key] for _ in range(L)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("k", [1, 3])
+def test_apply_tri_matches_jax(k, dtype, tol):
+    JA = j_poisson_2d(24)
+    cp, ci, cx = _factor(JA, "amd")
+    n = JA.nrows
+    j_dt = jnp.float64 if dtype == torch.float64 else jnp.float32
+    state, apply, nlev_f, nlev_b, waste = tsc.build_level_solver(
+        cp, ci, cx, n, dtype, device=CPU)
+    j_state, j_apply, j_nf, j_nb, j_waste = jsc.build_level_solver(
+        cp, ci, cx, n, j_dt)
+    assert (nlev_f, nlev_b, waste) == (j_nf, j_nb, j_waste)
+    b = np.random.default_rng(k).standard_normal((n, k))
+    bb = b[:, 0] if k == 1 else b
+    x = apply(state, torch.as_tensor(bb))
+    if k == 1:
+        x_jax = np.asarray(j_apply(j_state, jnp.asarray(bb, j_dt)))
+    else:
+        x_jax = np.stack([np.asarray(j_apply(j_state, jnp.asarray(b[:, j],
+                                                                  j_dt)))
+                          for j in range(k)], axis=1)
+    assert x.shape == bb.shape and x.dtype == dtype
+    assert np.abs(x.numpy() - x_jax).max() <= tol * np.abs(x_jax).max()
+
+
 def test_level_schedule_is_not_ported():
+    """The level schedule, once refused, now builds; an unknown schedule
+    is still refused."""
     cls, _ = get_solver("sparse_cholesky")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cls(_port_csr(j_poisson_2d(6)), schedule="level", device="cpu")
+    s = cls(_port_csr(j_poisson_2d(6)), schedule="level", device="cpu")
+    assert s.schedule == "level" and s.n_levels_f > 1
     with pytest.raises(ValueError, match="unknown schedule"):
         cls(_port_csr(j_poisson_2d(6)), schedule="scan", device="cpu")
+
+
+def test_level_multi_rhs_matches_jax():
+    """`--nrhs 3` on the level schedule: every column to 1e-10 and within
+    1e-9 of the JAX x, labelled fp32_ir_auto."""
+    JA = j_random_spd(300, 9)
+    rng = np.random.default_rng(0)
+    B = np.column_stack([make_rhs(JA.nrows)] + [rng.standard_normal(JA.nrows)
+                                                for _ in range(2)])
+    kw = dict(schedule="level", ordering="amd", rtol=1e-12)
+    _, port = _solve(get_solver, "sparse_cholesky", _port_csr(JA), B,
+                     device="cpu", **kw)
+    _, jax_res = _solve(j_get_solver, "sparse_cholesky", JA, B, **kw)
+    assert port.extra["precision_mode"] == "fp32_ir_auto"
+    assert port.extra["levels"] == jax_res.extra["levels"]
+    for j in range(3):
+        assert _relres(JA, port.x[:, j].numpy(), B[:, j]) <= 1e-10
+        assert _xdiff(port.x[:, j].numpy(),
+                      np.asarray(jax_res.x)[:, j]) <= 1e-9
 
 
 # ----------------------------------------------------------------- solves
@@ -209,6 +293,8 @@ SOLVES = {
                              "sparse_cholesky", dict(schedule="host")),
     "sparse_cholesky block": ("sparse_cholesky", dict(schedule="block"),
                               "sparse_cholesky", dict(schedule="block")),
+    "sparse_cholesky level": ("sparse_cholesky", dict(schedule="level"),
+                              "sparse_cholesky", dict(schedule="level")),
 }
 
 
@@ -233,7 +319,9 @@ def test_direct_solve_matches_jax(solve, name, ordering):
     if solve.startswith("sparse"):
         assert port.extra["schedule"] == kw["schedule"]
         assert port.extra["fill_nnz"] == jax_res.extra["fill_nnz"]
-        assert ("precision_mode" in port.extra) == (kw["schedule"] == "block")
+        assert ("precision_mode" in port.extra) == (kw["schedule"] != "host")
+        if kw["schedule"] == "level":
+            assert port.extra["levels"] == jax_res.extra["levels"]
     if port_name in ("cholesky", "cholmod", "cusolver"):
         # fp64 Cholesky runs as cholesky_ir (the JAX package's TPU branch);
         # the JAX CPU branch is a dense f64 factor.
@@ -281,7 +369,7 @@ def test_multi_rhs_each_column_converges(solve):
 
 FP32 = {"cholesky": [dict(refactor_each_solve=False),
                      dict(refactor_each_solve=True)],
-        "sparse_cholesky": [dict(schedule="block")]}
+        "sparse_cholesky": [dict(schedule="block"), dict(schedule="level")]}
 
 
 @pytest.mark.parametrize("name", sorted(FP32))
@@ -303,12 +391,15 @@ def test_fp32_cholesky_matches_jax(name):
 
 def test_cpu_direct_paths_launch_nothing():
     spmv_sell.reset_launches()
+    tri_sweep.reset_launches()
     JA = j_poisson_2d(10)
     A, b = _port_csr(JA), make_rhs(JA.nrows)
-    for name, kw in (("cholmod", {}), ("sparse_cholesky",
-                                      dict(schedule="block"))):
+    for name, kw in (("cholmod", {}),
+                     ("sparse_cholesky", dict(schedule="block")),
+                     ("sparse_cholesky", dict(schedule="level"))):
         _solve(get_solver, name, A, b, device="cpu", **kw)
     assert sum(spmv_sell.LAUNCHES.values()) == 0
+    assert sum(tri_sweep.LAUNCHES.values()) == 0
 
 
 # ------------------------------------------------------------ on the card
@@ -322,20 +413,25 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("solve", ["cholmod", "cusolver",
-                                   "sparse_cholesky block"])
+                                   "sparse_cholesky block",
+                                   "sparse_cholesky level"])
 def test_direct_paths_on_card(solve, cuda_device):
     """On the card each device path refines through `spmv_sell_f64` to the
-    plain versions' relres and refinement passes."""
+    plain versions' relres and refinement passes (the level schedule
+    through the f32 triangular-sweep kernel)."""
     JA = j_poisson_2d(24)
     A, b = _port_csr(JA), make_rhs(JA.nrows)
     port_name, kw, _, _ = SOLVES[solve]
     _, plain = _solve(get_solver, port_name, A, b, device="cpu",
                       ordering="amd", **kw)
     spmv_sell.reset_launches()
+    tri_sweep.reset_launches()
     _, res = _solve(get_solver, port_name, A, b, device=cuda_device,
                     ordering="amd", **kw)
     assert res.x.device.type == "cuda"
     assert spmv_sell.LAUNCHES["sell_f64"] > 0
+    assert (tri_sweep.LAUNCHES["tri_sweep_f32"] > 0) \
+        == (kw.get("schedule") == "level")
     assert _relres(JA, res.x.cpu().numpy(), b) <= 1e-10
     assert res.extra.get("refine_passes") == plain.extra.get("refine_passes")
     assert _xdiff(res.x.cpu().numpy(), plain.x.numpy()) <= 1e-9

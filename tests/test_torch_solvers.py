@@ -105,7 +105,5 @@ def test_unported_options_raise():
     from lsbench_tpu_torch.matrix.generate import poisson_2d
     A = poisson_2d(6)
     cls, _ = get_solver("cg")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cls(A, device="cpu", precond="ic0")
     with pytest.raises(ValueError, match="unknown layout"):
         cls(A, device="cpu", layout="csr")
