@@ -15,7 +15,8 @@ Phases, each of which raises (exit code 1) on failure:
    within 1e-13·max|y| and within 5e-13·max|y| of the host f64 CSR matvec —
    and print the median CUDA-event time of both with the bytes streamed.
 3. Main path: write each matrix to a file and run the port's CLI on it
-   (`cg_ir`, RCM, rtol 1e-10, 2 trials, 1 warmup); check the reference CSV,
+   (`cg_ir`, RCM, rtol 1e-10, 2 trials, 1 warmup, `--roofline`, which
+   phase 18 checks); check the reference CSV,
    convergence, the independent host f64 residual, and that the launch
    counters show each kernel of that path ran (on both matrices the SELL
    f32 and f64 kernels) and the BSR K1, K5 and K2 did not; print the peak
@@ -32,9 +33,10 @@ Phases, each of which raises (exit code 1) on failure:
    SELL, rectangular transfers included, with its times, bound and
    cuSPARSE's on the level-1 A.
 5. AMG-CG-IR path: the CLI with `cg_ir --precond amg_classical --ordering
-   rcm --rtol 1e-10` on poisson_2d(512); it must converge to true relres
-   ≤ 1e-10 through the SELL f32 kernel, K4 and the SELL f64 kernel, with
-   no K1 launch.
+   rcm --rtol 1e-10 --cache-dir` on poisson_2d(512), the setup cache's
+   miss (`hier_cache` "miss"); it must converge to true relres ≤ 1e-10
+   through the SELL f32 kernel, K4 and the SELL f64 kernel, with no K1
+   launch.
 6. Fixed-cycle backend path: the CLI with `--solver hypre` (2 V-cycles) on
    poisson_2d(512): the record must say `fp64(fp32_cycles_auto)`, K4 and
    the SELL f32 kernel must run (K1 not), the true relres must be finite
@@ -95,10 +97,10 @@ Phases, each of which raises (exit code 1) on failure:
    `--solver` (the reference's default, `cholmod`) and `--solver cusolver`
    on random_spd(6408, 23) (`fp64(fp32_ir_auto)`, through the SELL f64
    kernel); `cholmod --ordering amd` on poisson_2d(512), delegated to the
-   sparse host schedule, which launches nothing (fill, ordering, symbolic
-   and factor times); `sparse_cholesky --opt schedule=block --ordering amd`
-   on poisson_2d(512) (f32 blocked sweeps on the card refined through the
-   SELL f64 kernel; blocks and levels); `cholmod --nrhs 8` on
+   sparse host schedule, which launches nothing; `sparse_cholesky --opt
+   schedule=block --ordering amd` on poisson_2d(512) (f32 blocked sweeps
+   on the card refined through the SELL f64 kernel; blocks and levels):
+   both read the AMD ordering and factor from the cache phase 18 filled; `cholmod --nrhs 8` on
    random_spd(6408, 23) (worst column); `cholmod` on poisson_2d(64) on the
    card and with `--platform cpu`: the same refinement passes, no launch
    on the CPU run.
@@ -136,9 +138,29 @@ Phases, each of which raises (exit code 1) on failure:
    --precond ic0` (RCM) on poisson_2d(512) (`tri_sweep_f32`, SELL f32 and
    f64), fp64 `cg --precond ic0` (RCM) on random_spd(6408, 23)
    (`tri_sweep_f64`, SELL f64), `sparse_cholesky --opt schedule=level
-   --ordering amd` on poisson_2d(512) (`tri_sweep_f32`, SELL f64) and
+   --ordering amd` on poisson_2d(512) (`tri_sweep_f32`, SELL f64; its
+   factor from phase 18's cache) and
    `cholesky_band` (RCM) on both matrices (SELL f64, no sweep launch); the
    n=262k runs with one trial and one warm-up.
+18. The harness slice (run right after phase 6; its paths listed last):
+   the setup cache on poisson_2d(512), `cg_ir --precond amg_classical`
+   RCM: the exact hit of phase 5's entry (`exact_hit`, the miss's
+   iterations and true relres); a same-pattern re-assembly A2 = D·A·D
+   (d = 1 + 0.5·ix/511 at grid point (ix, iy)) written as a file, a
+   pattern hit (`pattern_hit_device_rap`, ≤ 1e-10, `rap_device_s`, peak
+   device memory, the plans' bytes and triples) beside the same solve
+   without the cache (a full rebuild); the refreshed level-1 operator
+   within 1e-12 relative of the host `rap(P0ᵀ, A2, P0)` and a second
+   refresh bitwise equal; phase 3's `--roofline` records of both matrices
+   (shares of 3350 GB/s in (0, 1.05], `spmv_s` within 1.5× of the
+   profiled L2-cold SELL f32 kernel on the same operator); `cg_ir
+   --profile-dir` on random_spd(6408, 23) (the trace holds
+   `spmv_sell_f32_kernel`); `--debug-nans`: `spmv_sell` on a NaN x raises
+   on the card and passes the NaN when off, and `cg_ir --debug-nans` on
+   poisson_2d(512) takes phase 3's iterations (both solve_s printed); the
+   sparse Cholesky factor (`sparse_cholesky --ordering amd` through the
+   solver API on the file the CLI reads): a miss, then a hit with the same
+   x bit for bit, into the cache phases 12 and 17 read.
 
 Each path's launch counts are read from counters set to 0 just before it.
 Beside each kernel's times the record carries the bound of its function
@@ -209,7 +231,7 @@ KERNELS = {
     "tri_sweep_f64": ("tri_sweep_f64", TRI_SOURCE, TRI_REPLACES),
 }
 # The main-path runs whose launch counts the record lists, in order.
-PATHS = ("cg_ir poisson_2d(512) + random_spd(6408,23)",
+PATHS = ("cg_ir --roofline poisson_2d(512) + random_spd(6408,23)",
          "cg_ir amg_classical poisson_2d(512)", "hypre poisson_2d(512)",
          "hypre poisson_2d(128)", "cg --nrhs 8 poisson_2d(512)",
          "cg --nrhs 8 random_spd(6408,23)", "ginkgo --nrhs 8 poisson_2d(512)",
@@ -233,7 +255,19 @@ PATHS = ("cg_ir poisson_2d(512) + random_spd(6408,23)",
          "cg --precond ic0 random_spd(6408,23)",
          "sparse_cholesky --opt schedule=level --ordering amd poisson_2d(512)",
          "cholesky_band random_spd(6408,23)",
-         "cholesky_band poisson_2d(512)")
+         "cholesky_band poisson_2d(512)",
+         "cg_ir amg_classical --cache exact hit poisson_2d(512)",
+         "cg_ir amg_classical --cache pattern hit D·A·D poisson_2d(512)",
+         "cg_ir amg_classical D·A·D poisson_2d(512) (rebuild)",
+         "cg_ir --profile-dir random_spd(6408,23)",
+         "cg_ir --debug-nans poisson_2d(512)",
+         "sparse_cholesky --cache --ordering amd poisson_2d(512) (API)")
+# The AMG-CG-IR command of the AMG and harness phases.
+AMG_CG_IR = ["--solver", "cg_ir", "--precond", "amg_classical", "--ordering",
+             "rcm", "--rtol", "1e-10", "--trials", "2", "--warmups", "1",
+             "--json"]
+# Records one phase leaves for a later one (the cache's miss).
+HARNESS = {}
 # H100 SXM data sheet: HBM3 rate, and peak rates outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
@@ -808,8 +842,9 @@ def spmm_cases(layouts, rng) -> dict:
 
 
 def main_path_phase(matrices) -> dict:
-    """Run cg_ir through the port's CLI on each matrix; return the launch
-    counts of the whole phase."""
+    """Run cg_ir through the port's CLI on each matrix, with `--roofline`
+    (the harness phase checks it); return the launch counts of the whole
+    phase."""
     import torch
 
     from lsbench_tpu_torch.harness.bench import BenchRecord
@@ -832,7 +867,8 @@ def main_path_phase(matrices) -> dict:
             with contextlib.redirect_stdout(buf):
                 rc = cli_main(["--matrix", fname, "--solver", "cg_ir",
                                "--ordering", "rcm", "--rtol", "1e-10",
-                               "--trials", "2", "--warmups", "1", "--json"])
+                               "--trials", "2", "--warmups", "1", "--json",
+                               "--roofline"])
             wall_s = time.perf_counter() - t0
             ran = read_counts()
             peak = torch.cuda.max_memory_allocated()
@@ -846,6 +882,7 @@ def main_path_phase(matrices) -> dict:
                   and fields[5] == "rcm",
                   f"{label}: bad CSV line {out[1]}")
             rec = json.loads(out[2])
+            HARNESS[label] = rec
             check(rec["converged"] is True, f"{label}: not converged")
             check(rec["true_relres"] <= 1e-10,
                   f"{label}: true_relres {rec['true_relres']:.3e} > 1e-10")
@@ -1085,11 +1122,18 @@ def cli_path(label: str, fname: str, argv: list[str]):
     from lsbench_tpu_torch.harness.bench import BenchRecord
     from lsbench_tpu_torch.harness.cli import main as cli_main
 
+    from lsbench_tpu_torch.harness import cache
+    from lsbench_tpu_torch.utils import debug
+
     buf = io.StringIO()
     reset_counts()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = cli_main(["--matrix", fname, *argv])
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["--matrix", fname, *argv])
+    finally:  # --cache and --debug-nans stay on in the process: undo them
+        cache.enable(False)
+        debug.enable_debug_nans(False)
     wall_s = time.perf_counter() - t0
     ran = read_counts()
     out = buf.getvalue().splitlines()
@@ -1101,9 +1145,10 @@ def cli_path(label: str, fname: str, argv: list[str]):
     return json.loads(out[2]), ran, wall_s
 
 
-def amg_paths_phase(tmp: str, A512, A128) -> list[dict]:
-    """The AMG-CG-IR path and the hypre path through the CLI; returns each
-    path's launch counts."""
+def amg_paths_phase(tmp: str, A512, A128, amg_cache: str) -> list[dict]:
+    """The AMG-CG-IR path (with `--cache-dir amg_cache`: the setup cache's
+    miss, which the harness phase hits) and the hypre path through the CLI;
+    returns each path's launch counts."""
     from lsbench_tpu_torch.matrix.io import write_matrix
 
     f512 = os.path.join(tmp, "poisson_512.txt")
@@ -1114,18 +1159,19 @@ def amg_paths_phase(tmp: str, A512, A128) -> list[dict]:
 
     t0 = time.perf_counter()
     rec, ran, wall = cli_path(
-        "amg-cg-ir", f512, ["--solver", "cg_ir", "--precond", "amg_classical",
-                            "--ordering", "rcm", "--rtol", "1e-10",
-                            "--trials", "2", "--warmups", "1", "--json"])
+        "amg-cg-ir", f512, [*AMG_CG_IR, "--cache-dir", amg_cache])
     check(rec["converged"] is True, "amg-cg-ir: not converged")
+    check(rec["setup_breakdown"]["hier_cache"] == "miss",
+          f"amg-cg-ir: hier_cache {rec['setup_breakdown']['hier_cache']}")
+    HARNESS["amg_miss"] = rec
     check(rec["true_relres"] <= 1e-10,
           f"amg-cg-ir: true_relres {rec['true_relres']:.3e} > 1e-10")
     for k in ("sell_f32", "well_f32", "sell_f64"):
         check(ran[k] > 0, f"amg-cg-ir: kernel {k} never launched")
     check(ran["bsr_f32"] == 0, f"amg-cg-ir: K1 launched {ran}")
     bd = rec["setup_breakdown"]
-    print(f"amg-cg-ir path poisson_2d(512): iters={rec['iters']} "
-          f"passes={rec['refine_passes']} "
+    print(f"amg-cg-ir path poisson_2d(512): hier_cache=miss "
+          f"iters={rec['iters']} passes={rec['refine_passes']} "
           f"true_relres={rec['true_relres']:.3e} setup_s={rec['setup_s']:.3f}"
           f" (hierarchy as precond_s={bd['precond_s']:.3f}, ordering_s="
           f"{bd['ordering_s']:.3f}, layout_s={bd['layout_s']:.3f}) "
@@ -1533,12 +1579,15 @@ def layout_paths_phase(tmp: str, matrices) -> list[dict]:
     return counts
 
 
-def direct_paths_phase(tmp: str, matrices, A64) -> list[dict]:
+def direct_paths_phase(tmp: str, matrices, A64, spchol_cache: str
+                       ) -> list[dict]:
     """The direct solvers through the CLI: the default solver (cholmod) and
     cusolver on random_spd(6408,23), cholmod --ordering amd (delegated to
     the sparse host schedule) and sparse_cholesky's blocked device schedule
     on poisson_2d(512), cholmod --nrhs 8, and cholmod on poisson_2d(64) on
-    the card against --platform cpu. Returns each path's launch counts."""
+    the card against --platform cpu. The two AMD runs on poisson_2d(512)
+    read their ordering and factor from `spchol_cache` (`--cache-dir`),
+    which the harness phase filled. Returns each path's launch counts."""
     from lsbench_tpu_torch.matrix.io import write_matrix
 
     files = {}
@@ -1585,7 +1634,10 @@ def direct_paths_phase(tmp: str, matrices, A64) -> list[dict]:
               "--ordering", "amd"], "block")):
         t0 = time.perf_counter()
         rec, ran, wall = cli_path(label, p512, argv + [
-            "--rtol", "1e-10", "--trials", "1", "--warmups", "1", "--json"])
+            "--rtol", "1e-10", "--trials", "1", "--warmups", "1", "--json",
+            "--cache-dir", spchol_cache])
+        check("factor_s" not in rec["setup_breakdown"],
+              f"{label}: the factor was not read from the cache")
         check(rec["schedule"] == schedule, f"{label}: schedule "
                                            f"{rec['schedule']}")
         check(rec["converged"] is True and rec["true_relres"] <= 1e-10,
@@ -1605,8 +1657,7 @@ def direct_paths_phase(tmp: str, matrices, A64) -> list[dict]:
               f"{rec['fill_nnz']} (the JAX package's AMD: 9.06M) blocks="
               f"{rec['blocks']} levels={rec['levels']} true_relres="
               f"{rec['true_relres']:.3e} setup_s={rec['setup_s']:.3f} "
-              f"(ordering_s={bd['ordering_s']:.3f} symbolic_s="
-              f"{bd['symbolic_s']:.3f} factor_s={bd['factor_s']:.3f} "
+              f"(ordering_s={bd['ordering_s']:.3f}, factor cached, "
               f"level_build_s={bd['level_build_s']:.3f}) solve_s="
               f"{rec['solve_s']:.4f} first_call_s={rec['first_call_s']:.3f} "
               f"cli_wall_s={wall:.2f} launches={ran} "
@@ -2005,15 +2056,16 @@ def tri_sweep_phase(matrices) -> dict:
     return results
 
 
-def tri_paths_phase(tmp: str, matrices) -> list[dict]:
+def tri_paths_phase(tmp: str, matrices, spchol_cache: str) -> list[dict]:
     """The slice-10 paths through the CLI: `cg_ir --precond ic0` on RCM
     poisson_2d(512) (f32 sweeps), fp64 `cg --precond ic0` on RCM
     random_spd(6408,23) (f64 sweeps, SELL f64 SpMV), `sparse_cholesky --opt
     schedule=level --ordering amd` on poisson_2d(512) (f32 sweeps refined
-    by the SELL f64 residual) and `cholesky_band` (RCM) on both matrices
-    (f32 band factor, SELL f64 residual); each to true relres ≤ 1e-10. The
-    n=262k runs take one trial and one warm-up. Returns each path's
-    launch counts."""
+    by the SELL f64 residual; its AMD ordering and factor read from
+    `spchol_cache`) and `cholesky_band` (RCM) on both matrices (f32 band
+    factor, SELL f64 residual); each to true relres ≤ 1e-10. The n=262k
+    runs take one trial and one warm-up. Returns each path's launch
+    counts."""
     from lsbench_tpu_torch.matrix.io import write_matrix
 
     files = {}
@@ -2032,7 +2084,8 @@ def tri_paths_phase(tmp: str, matrices) -> list[dict]:
         ("sparse_cholesky --opt schedule=level --ordering amd",
          "poisson_2d(512)",
          ["--solver", "sparse_cholesky", "--opt", "schedule=level",
-          "--ordering", "amd", *one], "fp64(fp32_ir_auto)",
+          "--ordering", "amd", "--cache-dir", spchol_cache, *one],
+         "fp64(fp32_ir_auto)",
          ("tri_sweep_f32", "sell_f64")),
         ("cholesky_band", "random_spd(6408,23)",
          ["--solver", "cholesky_band", "--ordering", "rcm", *two],
@@ -2056,6 +2109,9 @@ def tri_paths_phase(tmp: str, matrices) -> list[dict]:
             check(ran[k] > 0, f"{label}: kernel {k} never launched {ran}")
         check(ran["bsr_f32"] == ran["bsr_classed_f32"] == ran["bsr_f64acc"]
               == 0, f"{label}: a BSR kernel launched {ran}")
+        if "--cache-dir" in argv:
+            check("factor_s" not in rec["setup_breakdown"],
+                  f"{label}: the factor was not read from the cache")
         if argv[1] == "cholesky_band":
             check(ran["tri_sweep_f32"] == ran["tri_sweep_f64"] == 0,
                   f"{label}: the band solve launched a sweep {ran}")
@@ -2066,10 +2122,8 @@ def tri_paths_phase(tmp: str, matrices) -> list[dict]:
                       f"fill_nnz={rec.get('fill_nnz')} levels="
                       f"{rec.get('levels')} pad_waste="
                       f"{rec.get('pad_waste', 0):.4f} ordering_s="
-                      f"{bd.get('ordering_s', 0):.3f} symbolic_s="
-                      f"{bd.get('symbolic_s', 0):.3f} factor_s="
-                      f"{bd.get('factor_s', 0):.3f} level_build_s="
-                      f"{bd.get('level_build_s', 0):.3f}",
+                      f"{bd.get('ordering_s', 0):.3f}, factor cached, "
+                      f"level_build_s={bd.get('level_build_s', 0):.3f}",
                   "cholesky_band":
                       f"bandwidth={rec.get('bandwidth')} layout_s="
                       f"{bd.get('layout_s', 0):.3f} factor_s="
@@ -2081,6 +2135,261 @@ def tri_paths_phase(tmp: str, matrices) -> list[dict]:
               f"first_call_s={rec['first_call_s']:.3f} cli_wall_s={wall:.2f} "
               f"launches={ran} phase_s={time.perf_counter() - t0:.2f}")
         counts.append(ran)
+    return counts
+
+
+def _csr_max_diff(M1, M2) -> float:
+    """max |M1 − M2| over the union of the two patterns."""
+    from lsbench_tpu_torch.matrix.csr import CsrMatrix
+    r1, c1, v1 = M1.to_coo()
+    r2, c2, v2 = M2.to_coo()
+    D = CsrMatrix.from_coo(np.concatenate([r1, r2]), np.concatenate([c1, c2]),
+                           np.concatenate([v1, -v2]), nrows=M1.nrows,
+                           ncols=M1.ncols)
+    return float(np.abs(D.vals).max())
+
+
+def harness_paths_phase(tmp: str, matrices, amg_cache: str,
+                        spchol_cache: str) -> list[dict]:
+    """The harness slice at n=262,144: the setup cache (exact and pattern
+    hits of the AMG-CG-IR hierarchy that the AMG paths phase stored in
+    `amg_cache`, the numeric RAP against the host, the sparse Cholesky
+    factor into `spchol_cache`), the main path phase's `--roofline` records
+    (L2-cold, against this phase's own profiled cold SELL f32 time),
+    `--profile-dir` and `--debug-nans`. `tmp` holds the AMG paths phase's
+    poisson_2d(512) file. Returns each path's launch counts."""
+    import torch
+
+    from lsbench_tpu_torch.harness import cache
+    from lsbench_tpu_torch.harness.profile_solve import _device_events
+    from lsbench_tpu_torch.matrix.csr import CsrMatrix
+    from lsbench_tpu_torch.matrix.io import read_matrix, write_matrix
+    from lsbench_tpu_torch.matrix.sell import SellMatrix
+    from lsbench_tpu_torch.ops import _cuda
+    from lsbench_tpu_torch.ops import spmv_sell as ops
+    from lsbench_tpu_torch.ops.spgemm import rap
+    from lsbench_tpu_torch.ordering import get_ordering
+    from lsbench_tpu_torch.solvers import amg, get_solver
+    from lsbench_tpu_torch.utils import debug
+
+    A = matrices["poisson_2d(512)"]
+    f512 = os.path.join(tmp, "poisson_512.txt")  # the AMG paths phase's
+    frs = os.path.join(tmp, "random_spd.txt")
+    write_matrix(matrices["random_spd(6408,23)"], frs)
+    counts = []
+    timed = ["--trials", "2", "--warmups", "1", "--json"]
+
+    # Exact hit: the AMG paths phase's run, again.
+    t0 = time.perf_counter()
+    rec, ran, wall = cli_path("amg-cg-ir exact hit", f512,
+                              [*AMG_CG_IR, "--cache-dir", amg_cache])
+    miss = HARNESS["amg_miss"]
+    bd = rec["setup_breakdown"]
+    check(bd["hier_cache"] == "exact_hit", f"exact hit: {bd['hier_cache']}")
+    check(rec["iters"] == miss["iters"]
+          and rec["true_relres"] == miss["true_relres"],
+          f"exact hit: iters {rec['iters']} true_relres "
+          f"{rec['true_relres']!r}, miss {miss['iters']} "
+          f"{miss['true_relres']!r}")
+    for k in ("sell_f32", "well_f32", "sell_f64"):
+        check(ran[k] > 0, f"exact hit: kernel {k} never launched")
+    print(f"cache exact hit poisson_2d(512): hier_cache=exact_hit iters="
+          f"{rec['iters']} true_relres={rec['true_relres']:.3e} (miss: "
+          f"{miss['iters']}, {miss['true_relres']:.3e}) setup_s="
+          f"{rec['setup_s']:.3f} (miss {miss['setup_s']:.3f}; precond_s="
+          f"{bd['precond_s']:.3f}) solve_s={rec['solve_s']:.4f} cli_wall_s="
+          f"{wall:.2f} launches={ran} phase_s={time.perf_counter() - t0:.2f}")
+    counts.append(ran)
+
+    # Pattern hit: A2 = D·A·D, D smooth in the natural grid order.
+    t0 = time.perf_counter()
+    g = 512
+    d = 1.0 + 0.5 * (np.arange(A.nrows) // g) / (g - 1)
+    A2 = CsrMatrix(A.nrows, A.ncols, A.offs, A.cols,
+                   d[A.row_indices()] * A.vals * d[A.cols])
+    f2 = os.path.join(tmp, "poisson_512_dad.txt")
+    write_matrix(A2, f2)
+    write_s = time.perf_counter() - t0
+    amg._REFRESHERS.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec, ran, wall = cli_path("amg-cg-ir pattern hit", f2,
+                              [*AMG_CG_IR, "--cache-dir", amg_cache])
+    peak = torch.cuda.max_memory_allocated()
+    bd = rec["setup_breakdown"]
+    check(bd["hier_cache"] == "pattern_hit_device_rap",
+          f"pattern hit: {bd['hier_cache']}")
+    check(rec["converged"] is True and rec["true_relres"] <= 1e-10,
+          f"pattern hit: true_relres {rec['true_relres']:.3e}")
+    for k in ("sell_f32", "well_f32", "sell_f64"):
+        check(ran[k] > 0, f"pattern hit: kernel {k} never launched")
+    (refresher,) = amg._REFRESHERS.values()
+    plan_bytes = sum(t.numel() * t.element_size()
+                     for p in refresher._plans for q in (p.ra, p.rap)
+                     for t in (q.a_idx, q.b_idx, q.slot_pos, *q.pads))
+    triples = [(p.ra.a_idx.numel(), p.rap.a_idx.numel())
+               for p in refresher._plans]
+    counts.append(ran)
+    hit = rec
+    rec, ran, wall2 = cli_path("amg-cg-ir D·A·D rebuild", f2, AMG_CG_IR)
+    check(rec["setup_breakdown"]["hier_cache"] == "miss",
+          f"rebuild: {rec['setup_breakdown']['hier_cache']}")
+    check(rec["converged"] is True and rec["true_relres"] <= 1e-10,
+          f"rebuild: true_relres {rec['true_relres']:.3e}")
+    counts.append(ran)
+    print(f"cache pattern hit poisson_2d(512) D·A·D: hier_cache="
+          f"pattern_hit_device_rap iters={hit['iters']} passes="
+          f"{hit['refine_passes']} true_relres={hit['true_relres']:.3e} "
+          f"setup_s={hit['setup_s']:.3f} (rap_symbolic_s="
+          f"{bd['rap_symbolic_s']:.3f} rap_device_s="
+          f"{bd['rap_device_s']:.4f} precond_s={bd['precond_s']:.3f}; miss "
+          f"{miss['setup_s']:.3f}) solve_s={hit['solve_s']:.4f} "
+          f"peak_device_mem_bytes={peak} plan_bytes={plan_bytes} "
+          f"triples(ra, rap) per level={triples} cli_wall_s={wall:.2f}; "
+          f"full rebuild: iters={rec['iters']} passes="
+          f"{rec['refine_passes']} true_relres={rec['true_relres']:.3e} "
+          f"setup_s={rec['setup_s']:.3f} solve_s={rec['solve_s']:.4f} "
+          f"cli_wall_s={wall2:.2f}; write_s={write_s:.2f}")
+
+    # The refreshed level-1 operator against the host RAP, and repeatable.
+    t0 = time.perf_counter()
+    A2p = read_matrix(f2)
+    A2p = A2p.permuted(get_ordering("rcm", A2p))
+    vals1 = refresher.level_values(A2p.vals)
+    torch.cuda.synchronize()
+    rap_s = time.perf_counter() - t0
+    vals2 = refresher.level_values(A2p.vals)
+    check(all(torch.equal(a, b) for a, b in zip(vals1, vals2)),
+          "numeric RAP: a second refresh differs")
+    m0, nxt = refresher._mats[0], refresher._mats[1]["A"]
+    got = CsrMatrix(nxt.nrows, nxt.ncols, nxt.offs, nxt.cols,
+                    vals1[1].cpu().numpy())
+    ref = rap(m0["P"].transpose(), A2p, m0["P"])
+    rel = _csr_max_diff(got, ref) / float(np.abs(ref.vals).max())
+    check(rel <= 1e-12, f"numeric RAP level 1: rel diff {rel:.3e} > 1e-12")
+    print(f"numeric RAP level 1 (n={nxt.nrows}, nnz={nxt.nnz}) vs host "
+          f"rap(P0ᵀ, A2, P0): max rel diff {rel:.3e}; second refresh "
+          f"bitwise equal; chain + read back {rap_s:.4f} s "
+          f"phase_s={time.perf_counter() - t0:.2f}")
+    amg._REFRESHERS.clear()
+    del refresher, vals1, vals2
+    torch.cuda.empty_cache()
+
+    # --roofline: the main path phase's records, held to the phase's own
+    # profiled cold SELL f32 time of the same operator.
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    for label in matrices:
+        t0 = time.perf_counter()
+        rec = HARNESS[label]
+        r = rec["roofline"]
+        for k in ("hbm_utilization", "function_utilization"):
+            check(r[k] is not None and 0 < r[k] <= 1.05,
+                  f"roofline {label}: {k} {r[k]}")
+        M = matrices[label]
+        M = M.permuted(get_ordering("rcm", M))
+        S = SellMatrix.from_csr(M, dtypes=(torch.float32,), device="cuda")
+        check(S.bytes_streamed == r["stream_bytes"],
+              f"roofline {label}: stream_bytes {r['stream_bytes']} vs the "
+              f"layout's {S.bytes_streamed}")
+        x = torch.rand(M.ncols, device="cuda")
+        y = torch.empty(M.nrows, device="cuda")
+        args = (S.vals.data_ptr(), S.cols.data_ptr(), S.slice_off.data_ptr(),
+                x.data_ptr(), y.data_ptr(), M.nrows,
+                torch.cuda.current_stream().cuda_stream)
+        fn = _cuda.library("sell_spmv").lsb_spmv_sell_f32
+        cold = profiled_kernel_ms(fn, args, "spmv_sell_f32_kernel",
+                                  flush=flush)
+        ratio = r["spmv_s"] * 1e3 / cold
+        check(1 / 1.5 <= ratio <= 1.5,
+              f"roofline {label}: spmv_s {r['spmv_s'] * 1e3:.4f} ms vs the "
+              f"profiled cold kernel {cold:.4f} ms")
+        print(f"roofline {label} (cg_ir --roofline, main path phase): "
+              f"{json.dumps(r)} profiled cold kernel {cold:.4f} ms (ratio "
+              f"{ratio:.3f}) phase_s={time.perf_counter() - t0:.2f}")
+        if label == "poisson_2d(512)":
+            # --debug-nans: the wrapper raises on the card; off, NaN passes.
+            x[0] = float("nan")
+            check(bool(torch.isnan(ops.spmv_sell(S, x)).any()),
+                  "debug-nans off: the NaN did not pass through")
+            debug.enable_debug_nans(True)
+            try:
+                ops.spmv_sell(S, x)
+                raised = None
+            except FloatingPointError as e:
+                raised = str(e)
+            finally:
+                debug.enable_debug_nans(False)
+            check(raised is not None and "spmv_sell_f32" in raised,
+                  f"debug-nans: spmv_sell on the card raised {raised!r}")
+            print(f"--debug-nans on the card: spmv_sell raised "
+                  f"FloatingPointError({raised!r}); off, the NaN passed")
+        del S, x, y
+
+    t0 = time.perf_counter()
+    prof = os.path.join(tmp, "prof")
+    rec, ran, wall = cli_path(
+        "cg_ir --profile-dir random_spd(6408,23)", frs,
+        ["--solver", "cg_ir", "--ordering", "rcm", "--rtol", "1e-10",
+         "--profile-dir", prof, *timed])
+    check(rec["converged"] is True and rec["true_relres"] <= 1e-10,
+          f"--profile-dir: true_relres {rec['true_relres']:.3e}")
+    counts.append(ran)
+    (path,) = [os.path.join(prof, f) for f in os.listdir(prof)]
+    ev = _device_events(path)
+    n_sell = sum(1 for e in ev if e["cat"] == "kernel"
+                 and "spmv_sell_f32_kernel" in e["name"])
+    check(n_sell > 0, f"--profile-dir: no spmv_sell_f32_kernel in {path} "
+                      f"({len(ev)} device events)")
+    print(f"--profile-dir random_spd(6408,23): {os.path.getsize(path)} B "
+          f"trace, {len(ev)} device events, {n_sell} spmv_sell_f32_kernel "
+          f"of the run's {ran['sell_f32']} launches; cli_wall_s={wall:.2f} "
+          f"phase_s={time.perf_counter() - t0:.2f}")
+
+    t0 = time.perf_counter()
+    off = HARNESS["poisson_2d(512)"]
+    on, ran, _ = cli_path(
+        "cg_ir --debug-nans poisson_2d(512)", f512,
+        ["--solver", "cg_ir", "--ordering", "rcm", "--rtol", "1e-10",
+         "--debug-nans", *timed])
+    counts.append(ran)
+    check(on["iters"] == off["iters"] and on["true_relres"] <= 1e-10,
+          f"--debug-nans: iters {on['iters']} vs {off['iters']}")
+    print(f"cg_ir --debug-nans poisson_2d(512): iters={on['iters']} "
+          f"(without, main path phase: {off['iters']}) solve_s="
+          f"{on['solve_s']:.4f} (without: {off['solve_s']:.4f}) "
+          f"phase_s={time.perf_counter() - t0:.2f}")
+
+    # The sparse Cholesky factor: a miss, then a hit with the same x.
+    t0 = time.perf_counter()
+    A512 = read_matrix(f512)  # the file the CLI's AMD runs read
+    cls, params = get_solver("sparse_cholesky")
+    params.update(ordering="amd", device="cuda")
+    b = np.arange(A512.nrows, dtype=np.float64)
+    cache.enable(True)
+    cache.set_cache_dir(spchol_cache)
+    try:
+        reset_counts()
+        xs, setups = [], []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            solver = cls(A512, **params)
+            setups.append((time.perf_counter() - t1,
+                           dict(solver.setup_breakdown)))
+            xs.append(solver.solve(b).x)
+        ran = read_counts()
+    finally:
+        cache.enable(False)
+    check("factor_s" in setups[0][1] and "factor_s" not in setups[1][1],
+          f"spchol cache: breakdowns {setups}")
+    check(torch.equal(xs[0], xs[1]), "spchol cache: the hit's x differs")
+    counts.append(ran)
+    (m_s, m_bd), (h_s, h_bd) = setups
+    print(f"sparse_cholesky --ordering amd poisson_2d(512) cache: miss "
+          f"setup_s={m_s:.3f} (ordering_s={m_bd['ordering_s']:.3f} "
+          f"symbolic_s={m_bd['symbolic_s']:.3f} factor_s="
+          f"{m_bd['factor_s']:.3f}), hit setup_s={h_s:.3f} (ordering_s="
+          f"{h_bd['ordering_s']:.3f}); x bitwise equal; "
+          f"phase_s={time.perf_counter() - t0:.2f}")
     return counts
 
 
@@ -2111,11 +2420,21 @@ def main() -> int:
         matrices["poisson_2d(512)"])
     measured["spmv_sell_f32"]["amg_level1_a"] = sell_level1
     print(f"phase amg kernel: {time.perf_counter() - t0:.2f} s")
+    # The setup cache of the AMG and harness phases, and the AMD factor the
+    # harness phase stores and the direct and level paths read.
+    caches = tempfile.TemporaryDirectory()
+    amg_cache = os.path.join(caches.name, "amg")
+    spchol_cache = os.path.join(caches.name, "spchol")
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp:  # its files serve both phases
         path_counts += amg_paths_phase(tmp, matrices["poisson_2d(512)"],
-                                       poisson_2d(128))
-    print(f"phase amg paths: {time.perf_counter() - t0:.2f} s")
+                                       poisson_2d(128), amg_cache)
+        print(f"phase amg paths: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        harness_counts = harness_paths_phase(tmp, matrices, amg_cache,
+                                             spchol_cache)
+    print(f"phase harness (cache, roofline, profile, debug-nans): "
+          f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         path_counts += multi_rhs_paths_phase(tmp, matrices, poisson_2d(128))
@@ -2132,7 +2451,8 @@ def main() -> int:
     path_counts.append(bsr_api_counts)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        path_counts += direct_paths_phase(tmp, matrices, poisson_2d(64))
+        path_counts += direct_paths_phase(tmp, matrices, poisson_2d(64),
+                                          spchol_cache)
     print(f"phase direct paths: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     fp64 = fp64_direct_measurement(matrices["random_spd(6408,23)"])
@@ -2151,8 +2471,10 @@ def main() -> int:
     print(f"phase tri sweep kernel: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        path_counts += tri_paths_phase(tmp, matrices)
+        path_counts += tri_paths_phase(tmp, matrices, spchol_cache)
     print(f"phase ic0, level and band paths: {time.perf_counter() - t0:.2f} s")
+    caches.cleanup()
+    path_counts += harness_counts
     check(len(path_counts) == len(PATHS), "one launch count per path")
 
     kernels = []

@@ -10,9 +10,13 @@ RHS convention r[i] = i (lsbench.c:158-160).
 
 `--platform cuda` (the default) needs a CUDA device and exits 1 without
 one: there is no silent CPU run. `--platform cpu` runs the kernels' plain
-PyTorch versions. Flags whose machinery is not ported yet exit 1 with a
-message; a layout, preconditioner or solve schedule that is not ported yet
-does too, and nothing else is substituted for it.
+PyTorch versions. `--cache`/`--cache-dir` turn on the setup cache
+(`harness/cache.py`), `--profile-dir` traces the timed loop and
+`--roofline` reports the solver's SpMV against the card's HBM peak
+(`harness/profile.py`), `--debug-nans` makes every kernel wrapper raise on a
+NaN (`utils/debug.py`). Flags whose machinery is not ported yet exit 1 with
+a message; a layout, preconditioner or solve schedule that is not ported
+yet does too, and nothing else is substituted for it.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import json
 import sys
 import time
 
+import numpy as np
 import torch
 
 from lsbench_tpu_torch.harness.bench import (BenchRecord, reference_rhs,
@@ -39,10 +44,7 @@ PRECISION_DTYPES = {
 
 # Flags of the JAX CLI whose machinery is not ported yet (ROADMAP.md).
 _NOT_PORTED = (("devices", "--devices"), ("mesh", "--mesh"),
-               ("roofline", "--roofline"), ("profile_dir", "--profile-dir"),
-               ("cache", "--cache"), ("cache_dir", "--cache-dir"),
-               ("coordinator", "--coordinator"),
-               ("debug_nans", "--debug-nans"))
+               ("coordinator", "--coordinator"))
 # Solvers of the JAX package's registry that are not ported yet: refused,
 # where an unknown name would fall back to the default solver. None.
 _NOT_PORTED_SOLVERS = ()
@@ -85,11 +87,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "cpu (the kernels' plain PyTorch versions)")
     p.add_argument("--opt", action="append", default=[], metavar="KEY=VALUE",
                    help="extra solver parameter (repeatable)")
+    p.add_argument("--roofline", action="store_true",
+                   help="report the solver's SpMV against the card's HBM "
+                        "peak (L2-cold device time per application)")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler chrome trace of the timed "
+                        "loop into this directory")
+    p.add_argument("--cache", action="store_true",
+                   help="cache setup products (orderings, sparse Cholesky "
+                        "factors, AMG hierarchies) keyed by matrix hash")
+    p.add_argument("--cache-dir", default=None,
+                   help="setup cache directory (implies --cache; default "
+                        "$LSBENCH_CACHE_DIR or ~/.cache/lsbench_tpu_torch)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise FloatingPointError on a NaN out of any "
+                        "kernel wrapper (the sanitizer role; syncs each "
+                        "call)")
     # Accepted so reference command lines parse; not ported yet.
-    p.add_argument("--roofline", action="store_true", help="not yet ported")
-    p.add_argument("--profile-dir", default=None, help="not yet ported")
-    p.add_argument("--cache", action="store_true", help="not yet ported")
-    p.add_argument("--cache-dir", default=None, help="not yet ported")
     p.add_argument("--devices", type=int, default=None, help="not yet ported")
     p.add_argument("--mesh", default=None, metavar="RxC", help="not yet ported")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
@@ -98,7 +112,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --coordinator (not yet ported)")
     p.add_argument("--process-id", type=int, default=None,
                    help="with --coordinator (not yet ported)")
-    p.add_argument("--debug-nans", action="store_true", help="not yet ported")
     return p
 
 
@@ -166,6 +179,15 @@ def main(argv=None) -> int:
         return 1
     solver_name = _resolve_solver_name(args.solver)
     ordering = _resolve_ordering(args.ordering)
+
+    if args.cache or args.cache_dir:
+        from lsbench_tpu_torch.harness import cache
+        cache.enable(True)
+        if args.cache_dir:
+            cache.set_cache_dir(args.cache_dir)
+    if args.debug_nans:
+        from lsbench_tpu_torch.utils.debug import enable_debug_nans
+        enable_debug_nans(True)
 
     try:
         A = read_matrix(args.matrix)
@@ -260,14 +282,32 @@ def main(argv=None) -> int:
         return 1
     setup_s = time.perf_counter() - t0
 
-    rec = run_bench(solver, b, trials=args.trials, warmups=args.warmups,
-                    matrix_name=args.matrix, ordering=ordering,
-                    precision=precision, setup_s=setup_s)
+    bench = dict(trials=args.trials, warmups=args.warmups,
+                 matrix_name=args.matrix, ordering=ordering,
+                 precision=precision, setup_s=setup_s)
+    if args.profile_dir:
+        from lsbench_tpu_torch.harness.profile import trace
+        with trace(args.profile_dir, device):
+            rec = run_bench(solver, b, **bench)
+    else:
+        rec = run_bench(solver, b, **bench)
     # Report under the reference's original solver name for comparability.
     rec.solver = solver_name
     rec.extra["backend_init_s"] = backend_init_s
     rec.extra["device"] = (torch.cuda.get_device_name(device)
                            if device.type == "cuda" else "cpu")
+
+    if args.roofline:
+        op = solver.matvec_op()
+        if op is None:
+            print("roofline: solver has no streaming SpMV", file=sys.stderr)
+        else:
+            from lsbench_tpu_torch.harness.profile import spmv_roofline
+            mv, nnz, stream, x_dtype = op
+            x0 = torch.as_tensor(
+                np.random.default_rng(0).random(solver.A.ncols),
+                dtype=x_dtype, device=device)
+            rec.extra["roofline"] = spmv_roofline(mv, x0, nnz, stream)
 
     print(BenchRecord.CSV_HEADER)
     print(rec.csv_line())

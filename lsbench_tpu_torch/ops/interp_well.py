@@ -29,6 +29,9 @@ Dispatch: x on the CPU with the layout on the CPU goes to
 `spmv_well_plain`; x on the layout's CUDA device launches the kernel
 (`csrc/well_spmv.cu`); anything else raises. Each launch adds one to
 `LAUNCHES["well_f32"]`.
+With `--debug-nans` (`utils/debug.py`) each wrapper raises
+`FloatingPointError` on a NaN in its output, from the kernel or the plain
+version.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import torch
 
 from lsbench_tpu_torch.ops import _cuda  # builds nothing until first launch
 from lsbench_tpu_torch.ops.spmv_bsr import _check
+from lsbench_tpu_torch.utils.debug import checked
 
 TR = 128      # fine rows per window tile
 TPS = 8       # tiles per TPU grid step: n_pad is a multiple of TR·TPS, as
@@ -209,10 +213,10 @@ def spmv_well(op: WindowEll, v: torch.Tensor) -> torch.Tensor:
                          f"{op.vals.device}: need both on the CPU (plain "
                          "version) or on one CUDA device (kernel)")
     if dev.type == "cpu":
-        return spmv_well_plain(op, v)
+        return checked(spmv_well_plain(op, v), name)
     y = torch.empty(op.nrows, dtype=torch.float32, device=dev)
     _cuda.launch(_cuda.entry("well_spmv", name), name, dev,
                  op.vals.data_ptr(), op.lcols.data_ptr(), op.w0.data_ptr(),
                  v.data_ptr(), y.data_ptr(), op.nrows, op.n_pad, op.k_eff)
     LAUNCHES["well_f32"] += 1
-    return y
+    return checked(y, name)

@@ -26,6 +26,9 @@ fallback from a CUDA tensor to the plain version. Each kernel launch adds
 one to its count in `LAUNCHES`, so a run can show that it went through the
 kernels. K6–K8 sit on no solver path, as in the JAX package: this API is
 their entry.
+With `--debug-nans` (`utils/debug.py`) each wrapper raises
+`FloatingPointError` on a NaN in its output, from the kernel or the plain
+version.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from lsbench_tpu_torch.matrix.bsr import (BC, BR, GPS, BsrClassed,
                                           BsrCompact, BsrDf64, BsrMatrix)
 from lsbench_tpu_torch.ops import _cuda  # builds nothing until first launch
 from lsbench_tpu_torch.ops import spmv_sell
+from lsbench_tpu_torch.utils.debug import checked
 from lsbench_tpu_torch.utils.precision import full_f32
 
 LAUNCHES = {"bsr_f32": 0, "bsr_classed_f32": 0, "bsr_f64acc": 0,
@@ -113,7 +117,7 @@ def spmv_bsr(A: BsrMatrix, x: torch.Tensor,
            (A.n_groups, A.slots * BR, BC))
     _check(A.block_cols, "block_cols", torch.int32, (A.n_groups, A.slots))
     if _on_cpu(A.blocks, A.block_cols, x):
-        return spmv_bsr_plain(A, x)
+        return checked(spmv_bsr_plain(A, x), "spmv_bsr_f32")
     lib = _cuda.library("bsr_spmv")
     xt = _x_table(x, A.ncols, A.n_col_blocks, torch.float32)
     y = torch.empty((A.n_groups, BR), dtype=torch.float32, device=x.device)
@@ -123,7 +127,7 @@ def spmv_bsr(A: BsrMatrix, x: torch.Tensor,
             y.data_ptr(), A.n_groups, A.slots, _stream(x.device))
     _cuda.check(rc, "spmv_bsr_f32")
     LAUNCHES["bsr_f32"] += 1
-    return y.view(-1)[: A.nrows]
+    return checked(y.view(-1)[: A.nrows], "spmv_bsr_f32")
 
 
 # ------------------------------------------- K7, K8: gathers by one-hot
@@ -183,7 +187,7 @@ def _spmv_bsr_gather(A: BsrMatrix, x: torch.Tensor, rule: str) -> torch.Tensor:
         gather = A.block_cols
         _check(gather, "block_cols", torch.int32, (G, S))
     _on_cpu(A.blocks, gather, x)  # x is off CUDA: raises unless all on CPU
-    return plain(A, x)
+    return checked(plain(A, x), f"spmv_bsr_{rule}_f32")
 
 
 # ----------------------------------------------- K6: exact-block f32
@@ -217,7 +221,7 @@ def spmv_bsr_compact(A: BsrCompact, x: torch.Tensor) -> torch.Tensor:
     _check(A.gids, "gids", torch.int32, (T,))
     _check(A.bcols, "bcols", torch.int32, (T,))
     _on_cpu(A.blocks, A.gids, A.bcols, x)  # raises unless all on the CPU
-    return spmv_bsr_compact_plain(A, x)
+    return checked(spmv_bsr_compact_plain(A, x), "spmv_bsr_compact_f32")
 
 
 # ------------------------------------------------ K3: f32, k columns
@@ -255,7 +259,7 @@ def spmm_bsr(A: BsrMatrix, X: torch.Tensor) -> torch.Tensor:
            (A.n_groups, A.slots * BR, BC))
     _check(A.block_cols, "block_cols", torch.int32, (A.n_groups, A.slots))
     if _on_cpu(A.blocks, A.block_cols, X):
-        return spmm_bsr_plain(A, X)
+        return checked(spmm_bsr_plain(A, X), "spmm_bsr_f32")
     lib = _cuda.library("bsr_spmv")
     xt = _x_table_mm(X, A.ncols, A.n_col_blocks)
     k = X.shape[1]
@@ -266,7 +270,7 @@ def spmm_bsr(A: BsrMatrix, X: torch.Tensor) -> torch.Tensor:
             Y.data_ptr(), A.n_groups, A.slots, k, _stream(X.device))
     _cuda.check(rc, "spmm_bsr_f32")
     LAUNCHES["bsr_mm_f32"] += 1
-    return Y.view(-1, k)[: A.nrows]
+    return checked(Y.view(-1, k)[: A.nrows], "spmm_bsr_f32")
 
 
 # ------------------------------------------------------ K5: classed f32
@@ -300,7 +304,7 @@ def spmv_bsr_classed(A: BsrClassed, x: torch.Tensor) -> torch.Tensor:
         _check(oidx, "oidx", torch.int32, (ng // GPS,))
     tensors = [*A.blocks, *A.bcols, *A.oidx, x]
     if _on_cpu(*tensors):
-        return spmv_bsr_classed_plain(A, x)
+        return checked(spmv_bsr_classed_plain(A, x), "spmv_bsr_classed_f32")
     lib = _cuda.library("bsr_spmv")
     xt = _x_table(x, A.ncols, A.n_col_blocks, torch.float32)
     y = torch.zeros((A.n_groups, BR), dtype=torch.float32, device=x.device)
@@ -313,7 +317,7 @@ def spmv_bsr_classed(A: BsrClassed, x: torch.Tensor) -> torch.Tensor:
                 blocks.shape[1] // BR, stream)
             _cuda.check(rc, "spmv_bsr_classed_f32")
             LAUNCHES["bsr_classed_f32"] += 1
-    return y.view(-1)[: A.nrows]
+    return checked(y.view(-1)[: A.nrows], "spmv_bsr_classed_f32")
 
 
 # ---------------------------------------------------- K2: f64-accurate
@@ -332,7 +336,8 @@ def _f64acc(hi, lo, block_cols, ncols, nrows, n_cb, x):
     _check(lo, "blocks_lo", torch.float32, (G, S * BR, BC))
     _check(block_cols, "block_cols", torch.int32)
     if _on_cpu(hi, lo, block_cols, x):
-        return _f64acc_plain(hi, lo, block_cols, ncols, nrows, n_cb, x)
+        return checked(_f64acc_plain(hi, lo, block_cols, ncols, nrows, n_cb,
+                                     x), "spmv_bsr_f64acc")
     lib = _cuda.library("bsr_spmv")
     xt = _x_table(x, ncols, n_cb, torch.float64)
     y = torch.empty((G, BR), dtype=torch.float64, device=x.device)
@@ -342,7 +347,7 @@ def _f64acc(hi, lo, block_cols, ncols, nrows, n_cb, x):
             xt.data_ptr(), y.data_ptr(), G, S, _stream(x.device))
     _cuda.check(rc, "spmv_bsr_f64acc")
     LAUNCHES["bsr_f64acc"] += 1
-    return y.view(-1)[:nrows]
+    return checked(y.view(-1)[:nrows], "spmv_bsr_f64acc")
 
 
 def spmv_bsr_df64_plain(A: BsrDf64, x: torch.Tensor) -> torch.Tensor:

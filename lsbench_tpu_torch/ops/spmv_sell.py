@@ -27,6 +27,9 @@ There is no fallback from a CUDA tensor to the plain version. Each launch
 adds one to `LAUNCHES["sell_f32"]`, `LAUNCHES["sell_f64"]` or
 `LAUNCHES["sell_mm_f32"]`; the BSR K6, K7 and K8 (`ops/spmv_bsr.py`) run
 the f32 kernel on their packed layouts through `launch` and count there.
+With `--debug-nans` (`utils/debug.py`) each wrapper raises
+`FloatingPointError` on a NaN in its output, from the kernel or the plain
+version.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch
 
 from lsbench_tpu_torch.matrix.sell import SLICE, SellMatrix
 from lsbench_tpu_torch.ops import _cuda  # builds nothing until first launch
+from lsbench_tpu_torch.utils.debug import checked
 
 LAUNCHES = {"sell_f32": 0, "sell_f64": 0, "sell_mm_f32": 0}
 
@@ -95,7 +99,7 @@ def launch(S: SellMatrix, vals, x: torch.Tensor, dtype: torch.dtype,
     if dev != vals.device:
         raise ValueError(f"{name}: x on {dev}, the layout on {vals.device}")
     if dev.type == "cpu":
-        return _plain(S, vals, x)
+        return checked(_plain(S, vals, x), name)
     if dev.type != "cuda":
         raise ValueError(f"{name}: operands on {dev}: need the CPU (plain "
                          "version) or a CUDA device (kernel)")
@@ -105,7 +109,7 @@ def launch(S: SellMatrix, vals, x: torch.Tensor, dtype: torch.dtype,
                  vals.data_ptr(), S.cols.data_ptr(), S.slice_off.data_ptr(),
                  x.data_ptr(), y.data_ptr(), S.nrows, *k)
     counts[counter] += 1
-    return y
+    return checked(y, name)
 
 
 _STEM = {"spmv_sell_f32": "sell_spmv", "spmv_sell_f64": "sell_spmv",

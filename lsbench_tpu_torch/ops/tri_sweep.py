@@ -28,6 +28,9 @@ adds one to `LAUNCHES["tri_sweep_f32"]` or `LAUNCHES["tri_sweep_f64"]`. A
 row that waits past the kernel's cap sets the sweep's error word and
 publishes NaN; `check` reads the word (one device sync) and raises, and
 the solvers call it once per solve.
+With `--debug-nans` (`utils/debug.py`) each wrapper raises
+`FloatingPointError` on a NaN in its output, from the kernel or the plain
+version.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 
 from lsbench_tpu_torch.ops import _cuda  # builds nothing until first launch
+from lsbench_tpu_torch.utils.debug import checked
 
 LAUNCHES = {"tri_sweep_f32": 0, "tri_sweep_f64": 0}
 _NAMES = {torch.float32: "tri_sweep_f32", torch.float64: "tri_sweep_f64"}
@@ -142,7 +146,7 @@ def tri_sweep(S: TriSweep, b: torch.Tensor) -> torch.Tensor:
     if dev != S.device:
         raise ValueError(f"{name}: b on {dev}, the layout on {S.device}")
     if dev.type == "cpu":
-        return tri_sweep_plain(S, b)
+        return checked(tri_sweep_plain(S, b), name)
     if dev.type != "cuda":
         raise ValueError(f"{name}: operands on {dev}: need the CPU (plain "
                          "version) or a CUDA device (kernel)")
@@ -154,7 +158,7 @@ def tri_sweep(S: TriSweep, b: torch.Tensor) -> torch.Tensor:
                  x.data_ptr(), S.ready.data_ptr(), S.ctl.data_ptr(), S.n,
                  S.epoch)
     LAUNCHES[name] += 1
-    return x
+    return checked(x, name)
 
 
 def check(*sweeps: TriSweep) -> None:

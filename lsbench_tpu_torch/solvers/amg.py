@@ -21,8 +21,13 @@ mode runs f32 V-cycles with the f64 residual on the sliced-ELL f64 product
 branch the hierarchy would be f64, where window-ELL refuses to build and
 every level would run on the f64 product.
 
-The hierarchy cache (`--cache`) and its device re-setup
-(`HierarchyRefresher`, `ops/spgemm_device.py`) are not ported.
+With the setup cache on (`--cache`, `harness/cache.py`) the host hierarchy
+is stored under the JAX package's keys and layout: an exact hit (same
+structure and values) returns it, and a pattern hit (same structure, new
+values) keeps its splittings and transfer operators and re-forms every
+coarse operator on the solver's device (`HierarchyRefresher`, the numeric
+RAP of `ops/spgemm_device.py`), the reference's on-device BoomerAMGSetup
+(hypre.c:97).
 """
 
 from __future__ import annotations
@@ -296,11 +301,82 @@ def align_coarse_levels(mats, Acoarse):
     return mats, Acoarse
 
 
-def build_matrix_hierarchy(A: CsrMatrix, opts: AmgOptions):
+def _pack_csr(out: dict, prefix: str, M: CsrMatrix) -> None:
+    out[prefix + "_shape"] = np.asarray(M.shape, dtype=np.int64)
+    out[prefix + "_offs"] = M.offs
+    out[prefix + "_cols"] = M.cols
+    out[prefix + "_vals"] = M.vals
+
+
+def _unpack_csr(z: dict, prefix: str) -> CsrMatrix:
+    nr, nc = (int(v) for v in z[prefix + "_shape"])
+    return CsrMatrix(nr, nc, z[prefix + "_offs"], z[prefix + "_cols"],
+                     z[prefix + "_vals"])
+
+
+def _unpack_hierarchy(z: dict):
+    """(level mats, A_coarse) of a stored hierarchy."""
+    mats = [dict(A=_unpack_csr(z, f"l{l}_A"), P=_unpack_csr(z, f"l{l}_P"),
+                 R=_unpack_csr(z, f"l{l}_R"), dinv=z[f"l{l}_dinv"],
+                 dinv_l1=z[f"l{l}_dinv_l1"], rho=float(z[f"l{l}_rho"][0]))
+            for l in range(int(z["n_levels"][0]))]
+    return mats, _unpack_csr(z, "coarse")
+
+
+def _smoother_scalings(Al: CsrMatrix):
+    """(dinv, dinv_l1, rho) of one level's operator: the inverse diagonal,
+    the inverse ℓ1 diagonal d_i = a_ii + Σ_{j≠i}|a_ij| (hypre relax type 8)
+    and ρ(D⁻¹A) by power iteration."""
+    d = Al.diagonal()
+    dinv = 1.0 / np.where(d != 0, d, 1.0)
+    rl, cl_, vl = Al.to_coo()
+    l1 = d.copy()
+    offm = rl != cl_
+    np.add.at(l1, rl[offm], np.abs(vl[offm]))
+    dinv_l1 = 1.0 / np.where(l1 != 0, l1, 1.0)
+    return dinv, dinv_l1, estimate_rho_dinv_a(Al, dinv)
+
+
+def _maybe_align(mats, Acoarse, opts: AmgOptions):
+    if opts.align_coarse and mats:
+        return align_coarse_levels(mats, Acoarse)
+    return mats, Acoarse
+
+
+def build_matrix_hierarchy(A: CsrMatrix, opts: AmgOptions,
+                           breakdown: dict | None = None, device="cuda"):
     """Host coarsening loop → (level_mats, A_coarse). Each level entry is
     dict(A, P, R, dinv, dinv_l1, rho) in CSR; A_coarse is the final
-    (direct-solve) operator. The JAX package's loop without its cache
-    branches."""
+    (direct-solve) operator.
+
+    With the setup cache on, two kinds of hit, as in the JAX package:
+    - exact (structure and values): the stored hierarchy is returned;
+    - pattern (same structure, new values): the stored splittings and
+      transfer operators P/R are kept, every coarse operator is re-formed
+      on `device` by the numeric RAP, and the smoother scalings are
+      recomputed from the new values.
+    Both entries are stored before the coarse alignment. `breakdown` (if
+    given) records which path ran ("hier_cache") and the re-setup's
+    seconds: "rap_symbolic_s" for the plans (when this process builds
+    them), "rap_device_s" for the refresh."""
+    from lsbench_tpu_torch.harness import cache
+    key = pat_key = None
+    if cache.is_enabled():
+        opt_sig = ("amg_hier_v4", opts.coarsening, opts.theta, opts.interp,
+                   opts.interp_passes, opts.interp_omega, opts.pmax,
+                   opts.strength, opts.coarse_n, opts.max_levels,
+                   opts.min_coarsen_ratio, opts.reorder_coarse)
+        key = cache.key_of(cache.fingerprint_csr(A), *opt_sig)
+        pat_key = cache.key_of(cache.fingerprint_pattern(A), *opt_sig)
+        hit = cache.load_arrays("amg_hier", key)
+        if hit is not None:
+            if breakdown is not None:
+                breakdown["hier_cache"] = "exact_hit"
+            return _maybe_align(*_unpack_hierarchy(hit), opts)
+        refreshed = _pattern_hit_refresh(A, pat_key, breakdown, device)
+        if refreshed is not None:
+            return _maybe_align(*refreshed, opts)
+
     mats = []
     Al = A
     while (Al.nrows > opts.coarse_n and len(mats) < opts.max_levels):
@@ -319,21 +395,139 @@ def build_matrix_hierarchy(A: CsrMatrix, opts: AmgOptions):
                                    ncols=P.ncols, sum_duplicates=False)
         R = P.transpose()
         Ac = rap(R, Al, P)
-        d = Al.diagonal()
-        dinv = 1.0 / np.where(d != 0, d, 1.0)
-        # ℓ1 diagonal d_i = a_ii + Σ_{j≠i}|a_ij| (hypre relax type 8).
-        rl, cl_, vl = Al.to_coo()
-        l1 = d.copy()
-        offm = rl != cl_
-        np.add.at(l1, rl[offm], np.abs(vl[offm]))
-        dinv_l1 = 1.0 / np.where(l1 != 0, l1, 1.0)
-        rho = estimate_rho_dinv_a(Al, dinv)
+        dinv, dinv_l1, rho = _smoother_scalings(Al)
         mats.append(dict(A=Al, P=P, R=R, dinv=dinv, dinv_l1=dinv_l1,
                          rho=rho))
         Al = Ac
-    if opts.align_coarse and mats:
-        return align_coarse_levels(mats, Al)
-    return mats, Al
+
+    if key is not None:
+        out = {"n_levels": np.asarray([len(mats)], dtype=np.int64)}
+        for l, m in enumerate(mats):
+            _pack_csr(out, f"l{l}_A", m["A"])
+            _pack_csr(out, f"l{l}_P", m["P"])
+            _pack_csr(out, f"l{l}_R", m["R"])
+            out[f"l{l}_dinv"] = m["dinv"]
+            out[f"l{l}_dinv_l1"] = m["dinv_l1"]
+            out[f"l{l}_rho"] = np.asarray([m["rho"]])
+        _pack_csr(out, "coarse", Al)
+        cache.store_arrays("amg_hier", key, out)
+        # The pattern-keyed copy, for same-structure re-setup.
+        cache.store_arrays("amg_hier_pat", pat_key, out)
+    if breakdown is not None:
+        breakdown.setdefault("hier_cache", "miss")
+    return _maybe_align(mats, Al, opts)
+
+
+# In-process memo of refreshers, so that repeated same-pattern re-setups
+# skip the host symbolic pass (the plans are fixed per pattern). Bounded:
+# each refresher pins its plans' index arrays on its device.
+_REFRESHERS: dict[tuple[str, str], "HierarchyRefresher"] = {}
+_REFRESHERS_MAX = 4
+
+
+def _pattern_hit_refresh(A: CsrMatrix, pat_key: str,
+                         breakdown: dict | None, device):
+    """Exact-miss path: on a pattern-keyed entry, re-form the hierarchy on
+    `device` from A's new values (memoizing the refresher); None if there
+    is no usable entry."""
+    from lsbench_tpu_torch.harness import cache
+
+    memo_key = (pat_key, str(torch.device(device)))
+    refresher = _REFRESHERS.get(memo_key)
+    if refresher is None:
+        hit = cache.load_arrays("amg_hier_pat", pat_key)
+        if hit is None or int(hit["n_levels"][0]) == 0:
+            return None
+        t0 = time.perf_counter()
+        try:
+            refresher = HierarchyRefresher(*_unpack_hierarchy(hit),
+                                           device=device)
+        except ValueError:
+            # A stale or incompatible entry: the best-effort cache falls
+            # back to a full rebuild, never aborts the solve.
+            return None
+        if len(_REFRESHERS) >= _REFRESHERS_MAX:
+            _REFRESHERS.pop(next(iter(_REFRESHERS)))
+        _REFRESHERS[memo_key] = refresher
+        if breakdown is not None:
+            # The host symbolic pass, paid once per process and pattern.
+            breakdown["rap_symbolic_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    mats, Acoarse = refresher.refresh(A.vals)
+    if breakdown is not None:
+        breakdown["hier_cache"] = "pattern_hit_device_rap"
+        breakdown["rap_device_s"] = time.perf_counter() - t0
+    # Not stored under the exact key: the refreshed hierarchy carries the
+    # pattern entry's frozen transfer operators, and serving it later as
+    # this matrix's "exact_hit" would make results depend on the order the
+    # cache was filled in.
+    return mats, Acoarse
+
+
+class HierarchyRefresher:
+    """Frozen-hierarchy re-setup: same sparsity, new matrix values.
+
+    The splittings and the transfer operators P/R (patterns and weights)
+    stay as stored; each coarse operator A_{l+1} = R_l A_l P_l is re-formed
+    on `device` by the two-pass RAP (`ops/spgemm_device.py`: host symbolic
+    plans, built once here, and the numeric pass per refresh), in one pass
+    down the chain. The smoother scalings (D⁻¹, ℓ1, ρ) are then recomputed
+    on the host from the new values.
+    """
+
+    def __init__(self, mats: list[dict], Acoarse: CsrMatrix, device="cuda"):
+        from lsbench_tpu_torch.ops.spgemm_device import rap_symbolic
+
+        self._mats = mats
+        self._Acoarse = Acoarse
+        self.device = torch.device(device)
+        self._plans = []
+        self._rp_vals = []
+        chain = [m["A"] for m in mats] + [Acoarse]
+        f64 = dict(dtype=torch.float64, device=self.device)
+        for l, m in enumerate(mats):
+            plan = rap_symbolic(m["R"], m["A"], m["P"], self.device)
+            nxt = chain[l + 1]
+            # The plan's output pattern must be the stored coarse pattern
+            # (both canonical row-major CSR), so that the new values drop
+            # into the stored structure.
+            if not (np.array_equal(plan.rap.offs, nxt.offs)
+                    and np.array_equal(plan.rap.cols, nxt.cols)):
+                raise ValueError("RAP plan pattern differs from the stored "
+                                 f"hierarchy at level {l}: stale cache entry")
+            self._plans.append(plan)
+            self._rp_vals.append((torch.as_tensor(m["R"].vals, **f64),
+                                  torch.as_tensor(m["P"].vals, **f64)))
+
+    def level_values(self, fine_vals) -> list[torch.Tensor]:
+        """The values of every operator down the chain, fine first, as f64
+        tensors on the device: one numeric RAP per level, each feeding the
+        next."""
+        from lsbench_tpu_torch.ops.spgemm_device import rap_numeric
+
+        vals = torch.as_tensor(np.asarray(fine_vals, dtype=np.float64),
+                               device=self.device)
+        out = [vals]
+        for plan, (rv, pv) in zip(self._plans, self._rp_vals):
+            vals = rap_numeric(plan, rv, vals, pv)
+            out.append(vals)
+        return out
+
+    def refresh(self, fine_vals) -> tuple[list[dict], CsrMatrix]:
+        level_vals = [v.cpu().numpy() for v in self.level_values(fine_vals)]
+        new_mats = []
+        for l, m in enumerate(self._mats):
+            Al = CsrMatrix(nrows=m["A"].nrows, ncols=m["A"].ncols,
+                           offs=m["A"].offs, cols=m["A"].cols,
+                           vals=level_vals[l])
+            dinv, dinv_l1, rho = _smoother_scalings(Al)
+            new_mats.append(dict(A=Al, P=m["P"], R=m["R"], dinv=dinv,
+                                 dinv_l1=dinv_l1, rho=rho))
+        Ac = CsrMatrix(nrows=self._Acoarse.nrows, ncols=self._Acoarse.ncols,
+                       offs=self._Acoarse.offs, cols=self._Acoarse.cols,
+                       vals=level_vals[-1])
+        return new_mats, Ac
 
 
 def l1_gs_blocks(M: CsrMatrix, block: int = 128):
@@ -460,10 +654,11 @@ def device_hierarchy(mats, Acoarse: CsrMatrix, opts: AmgOptions, dtype,
 
 
 def build_hierarchy(A: CsrMatrix, opts: AmgOptions, dtype, layout: str,
-                    device):
-    """Host setup and device layouts → (level_params, level_aps,
-    coarse_factor)."""
-    mats, Al = build_matrix_hierarchy(A, opts)
+                    device, breakdown: dict | None = None):
+    """Host setup (or the cache, see `build_matrix_hierarchy`) and device
+    layouts → (level_params, level_aps, coarse_factor)."""
+    mats, Al = build_matrix_hierarchy(A, opts, breakdown=breakdown,
+                                      device=device)
     return device_hierarchy(mats, Al, opts, dtype, layout, device)
 
 
@@ -642,7 +837,8 @@ class AmgSolver(Solver):
             opts.reorder_coarse = True
         t0 = time.perf_counter()
         self._levels, level_aps, self._coarse_L = build_hierarchy(
-            Ah, opts, self.dtype, self.layout, self.device)
+            Ah, opts, self.dtype, self.layout, self.device,
+            breakdown=self.setup_breakdown)
         self.setup_breakdown["hierarchy_s"] = time.perf_counter() - t0
         self.n_levels = len(level_aps) + 1
         self._vcycle = make_vcycle(level_aps, opts, self.dtype)
@@ -733,10 +929,12 @@ class AmgSolver(Solver):
         return lambda b: self._run(b)[0]
 
 
-def amg_precond(A: CsrMatrix, dtype, device, **amg_params):
+def amg_precond(A: CsrMatrix, dtype, device, breakdown: dict | None = None,
+                **amg_params):
     """One V-cycle as a CG preconditioner (symmetric: the same smoother
     before and after). With the ℓ1-GS smoother A is RCM-banded internally
-    and the cycle applied as Pᵀ M⁻¹ P, so it stays SPD for CG."""
+    and the cycle applied as Pᵀ M⁻¹ P, so it stays SPD for CG. `breakdown`
+    receives the hierarchy cache's path (`build_matrix_hierarchy`)."""
     dtype = as_dtype(dtype)
     layout = resolve_layout(amg_params.pop("layout", "auto"), dtype)
     opts = AmgOptions(**amg_params)
@@ -744,8 +942,8 @@ def amg_precond(A: CsrMatrix, dtype, device, **amg_params):
     if opts.smoother == "l1_gs":
         A, perm, inv = permutation("rcm", A, device)
         opts.reorder_coarse = True
-    level_params, level_aps, coarse_L = build_hierarchy(A, opts, dtype,
-                                                        layout, device)
+    level_params, level_aps, coarse_L = build_hierarchy(
+        A, opts, dtype, layout, device, breakdown=breakdown)
     vcycle = make_vcycle(level_aps, opts, dtype)
 
     def apply(state, r):

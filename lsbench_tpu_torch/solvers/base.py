@@ -72,6 +72,18 @@ class Solver(abc.ABC):
         tensor only."""
         return lambda b: self.solve(b).x
 
+    def matvec_op(self):
+        """(matvec_fn, nnz, stream_bytes, x_dtype) for the roofline report,
+        or None if the solver has no streaming SpMV (a direct solver, AMG).
+        The JAX package's triple plus the dtype of the x that `matvec_fn`
+        takes: the port's kernels do not cast."""
+        mv = getattr(self, "_mv", None)
+        stream = getattr(self, "stream_bytes", None)
+        if mv is None or stream is None:
+            return None
+        return mv, self.A.nnz, stream, getattr(self, "_mv_dtype",
+                                                torch.float32)
+
 
 _REGISTRY: dict[str, type[Solver]] = {}
 _ALIASES: dict[str, tuple[str, dict]] = {}

@@ -22,7 +22,7 @@ from lsbench_tpu_torch.solvers.base import register_solver
 from lsbench_tpu_torch.solvers.bicgstab import batched_bicgstab_loop
 from lsbench_tpu_torch.solvers.block_cg import (MultiRhsIrSolver,
                                                 column_precond)
-from lsbench_tpu_torch.solvers.preconditioners import get_preconditioner
+from lsbench_tpu_torch.solvers.preconditioners import build as build_precond
 
 
 @register_solver("batched_bicgstab")
@@ -38,8 +38,9 @@ class BatchedBicgstabSolver(MultiRhsIrSolver):
         super().__init__(A, rtol, min(float(inner_rtol), float(rtol) * 0.1),
                          maxiter, max_refine, ordering, device, **params)
         t0 = time.perf_counter()
-        self._pstate, papply = get_preconditioner(precond)(
-            self._Ap, torch.float32, self.device, **(precond_params or {}))
+        self._pstate, papply = build_precond(
+            precond, self._Ap, torch.float32, self.device, precond_params,
+            self.setup_breakdown)
         self._pc_cols = column_precond(precond, self._pstate, papply)
         self.setup_breakdown["precond_s"] = time.perf_counter() - t0
 

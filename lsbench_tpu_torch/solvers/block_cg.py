@@ -37,7 +37,7 @@ from lsbench_tpu_torch.ops.spmv_sell import spmm_sell
 from lsbench_tpu_torch.solvers.base import SolveResult, Solver, register_solver
 from lsbench_tpu_torch.solvers.cg import full_f32, permutation
 from lsbench_tpu_torch.solvers.preconditioners import (check as check_precond,
-                                                       get_preconditioner)
+                                                       build as build_precond)
 from lsbench_tpu_torch.solvers.refine import f64_residual_matvec
 
 
@@ -277,9 +277,9 @@ class BlockCgSolver(MultiRhsIrSolver):
             self._ihalf = torch.as_tensor(ih, dtype=torch.float32,
                                           device=self.device)
         else:
-            self._pstate, papply = get_preconditioner(precond)(
-                self._Ap, torch.float32, self.device,
-                **(precond_params or {}))
+            self._pstate, papply = build_precond(
+                precond, self._Ap, torch.float32, self.device,
+                precond_params, self.setup_breakdown)
             self._pc_cols = column_precond(precond, self._pstate, papply)
         self.setup_breakdown["precond_s"] = time.perf_counter() - t0
 

@@ -29,7 +29,7 @@ from lsbench_tpu_torch.ops.spmv_sell import spmv_sell, spmv_sell_f64
 from lsbench_tpu_torch.ordering import get_ordering
 from lsbench_tpu_torch.solvers.base import SolveResult, Solver, register_solver
 from lsbench_tpu_torch.solvers.preconditioners import (check as check_precond,
-                                                       get_preconditioner)
+                                                       build as build_precond)
 from lsbench_tpu_torch.utils.precision import full_f32
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -161,8 +161,12 @@ class CgSolver(Solver):
         mv_dt = (torch.float32 if self.layout in ("bsr", "bsr_classed")
                  else self._dt)
         self._mv = lambda v: apply_mv(self._op, v.to(mv_dt)).to(self._dt)
-        self._pstate, papply = get_preconditioner(precond)(
-            Ap, self._dt, self.device, **(precond_params or {}))
+        self._mv_dtype = mv_dt
+        # The bytes the layout streams per SpMV, for the roofline report.
+        self.stream_bytes = getattr(self._op, "bytes_streamed", None)
+        self._pstate, papply = build_precond(
+            precond, Ap, self._dt, self.device, precond_params,
+            self.setup_breakdown)
         self._pc = lambda r: papply(self._pstate, r)
 
     def solve(self, b) -> SolveResult:

@@ -147,3 +147,8 @@ class GmresSolver(CgSolver):
         res = self._delegate.solve(b)
         res.extra["precision_mode"] = "fp32_ir_auto"
         return res
+
+    def matvec_op(self):
+        if self._delegate is None:
+            return super().matvec_op()
+        return self._delegate.matvec_op()

@@ -145,6 +145,18 @@ def check(state) -> None:
         state.check()
 
 
+def build(name: str, A: CsrMatrix, dtype, device, params: dict | None = None,
+          breakdown: dict | None = None):
+    """(state, apply) of preconditioner `name` on A with its `params`; an
+    AMG one also records its hierarchy cache path into `breakdown` (the
+    solver's setup breakdown)."""
+    factory = get_preconditioner(name)
+    params = dict(params or {})
+    if factory in (_amg_precond, _amg_classical_precond):
+        params["breakdown"] = breakdown
+    return factory(A, dtype, device, **params)
+
+
 def get_preconditioner(name: str):
     key = name.lower()
     if key in PRECONDITIONERS:

@@ -29,7 +29,7 @@ from lsbench_tpu_torch.solvers.cg import (build_matvec, cg_loop, permutation,
                                           resolve_layout)
 from lsbench_tpu_torch.solvers.gmres import gmres_loop, max_restarts_for
 from lsbench_tpu_torch.solvers.preconditioners import (check as check_precond,
-                                                       get_preconditioner)
+                                                       build as build_precond)
 
 
 def f64_residual_matvec(Ap: CsrMatrix, op, device):
@@ -124,12 +124,14 @@ class KrylovIrSolver(Solver):
         t0 = time.perf_counter()
         apply32, self._op = build_matvec(Ap, self.layout, self.device)
         self._mv = lambda v: apply32(self._op, v)
+        self.stream_bytes = getattr(self._op, "bytes_streamed", None)
         self._resid_mv = f64_residual_matvec(Ap, self._op, self.device)
         self.setup_breakdown["layout_s"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        self._pstate, papply = get_preconditioner(precond)(
-            Ap, torch.float32, self.device, **(precond_params or {}))
+        self._pstate, papply = build_precond(
+            precond, Ap, torch.float32, self.device, precond_params,
+            self.setup_breakdown)
         self._pc = lambda r: papply(self._pstate, r)
         self.setup_breakdown["precond_s"] = time.perf_counter() - t0
 

@@ -30,6 +30,10 @@ The reference's default backend factors on the host CPU (CHOLMOD with
     level order, where the JAX package scans the levels (`_sweep`); fp64
     sweeps in f32 with the `spmv_sell_f64` refinement residual, as
     "block" does.
+
+With the setup cache on (`--cache`, `harness/cache.py`) the factor is
+stored under the JAX package's key and layout (`spchol`: cp, ci, cx), and
+a hit skips the symbolic and numeric phases for every schedule.
 """
 
 from __future__ import annotations
@@ -626,14 +630,27 @@ class SparseCholeskySolver(Solver):
         Ap, self._perm, self._inv = permutation(
             ordering, A, "cpu" if schedule == "host" else self.device)
         self.setup_breakdown["ordering_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        As = symmetrize(Ap)
-        parent = elimination_tree(As)
-        loffs, lcols = symbolic_rows(As, parent)
-        self.setup_breakdown["symbolic_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        cp, ci, cx = numeric_factor(As, loffs, lcols)
-        self.setup_breakdown["factor_s"] = time.perf_counter() - t0
+        # The setup cache keeps the factor (`harness/cache.py`): on a hit
+        # the symbolic and numeric phases are skipped, whatever the schedule.
+        from lsbench_tpu_torch.harness import cache
+        key = hit = None
+        if cache.is_enabled():
+            key = cache.key_of(cache.fingerprint_csr(A), ordering, "v1")
+            hit = cache.load_arrays("spchol", key)
+        if hit is not None:
+            cp, ci, cx = hit["cp"], hit["ci"], hit["cx"]
+        else:
+            t0 = time.perf_counter()
+            As = symmetrize(Ap)
+            parent = elimination_tree(As)
+            loffs, lcols = symbolic_rows(As, parent)
+            self.setup_breakdown["symbolic_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cp, ci, cx = numeric_factor(As, loffs, lcols)
+            self.setup_breakdown["factor_s"] = time.perf_counter() - t0
+            if key is not None:
+                cache.store_arrays("spchol", key,
+                                   {"cp": cp, "ci": ci, "cx": cx})
         self.fill_nnz = int(cp[-1])
         self.n_levels_f = self.n_levels_b = self.n_blocks = None
         self.pad_waste = 0.0

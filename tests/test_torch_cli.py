@@ -1,6 +1,8 @@
 """The port's CLI against the JAX package's: the same reference CSV record,
-the same error behaviour, and flags whose machinery is not ported yet
-refused with rc=1. Also: the port never imports jax."""
+the same error behaviour, flags whose machinery is not ported yet refused
+with rc=1, and the harness flags (`--cache`, `--cache-dir`, `--roofline`,
+`--profile-dir`, `--debug-nans`) run on the CPU. Also: the port never
+imports jax."""
 
 import json
 import os
@@ -272,9 +274,7 @@ def test_missing_or_malformed_file(tmp_path, capsys, content):
 
 @pytest.mark.parametrize("flags", [
     ["--devices", "2"], ["--mesh", "2x4"], ["--solver", "hypre", "--nrhs", "2"],
-    ["--roofline"],
-    ["--profile-dir", "prof"], ["--cache"], ["--cache-dir", "c"],
-    ["--coordinator", "localhost:1234"], ["--debug-nans"],
+    ["--coordinator", "localhost:1234"],
     ["--platform", "tpu"],
 ])
 def test_unported_flags_exit_1(tiny_matrix_file, capsys, flags):
@@ -436,3 +436,129 @@ def test_profile_device_busy_is_union_of_intervals(tmp_path, monkeypatch):
     assert ps._union_us([]) == 0.0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert ps.main([]) == 1
+
+
+# ------------------------------------------------ the harness flags (slice 11)
+
+@pytest.fixture
+def harness_state(tmp_path, monkeypatch):
+    """The cache and the NaN switch as the CLI leaves them are restored
+    after the test; the default cache directory is a temporary one."""
+    from lsbench_tpu_torch.harness import cache
+    from lsbench_tpu_torch.solvers import amg
+    from lsbench_tpu_torch.utils import debug
+    monkeypatch.setattr(cache, "_enabled", False)
+    monkeypatch.setattr(cache, "_root", tmp_path / "default_cache")
+    monkeypatch.setattr(amg, "_REFRESHERS", {})
+    monkeypatch.setattr(debug, "_debug_nans", False)
+    return tmp_path
+
+
+def _rec(argv, capsys):
+    rc, out, err = _run(main, argv + ["--platform", "cpu", "--json"], capsys)
+    assert rc == 0, err
+    return json.loads(out[2]), err
+
+
+AMG_CG_IR = ["--solver", "cg_ir", "--precond", "amg_classical", "--ordering",
+             "rcm", "--rtol", "1e-10", "--trials", "1", "--warmups", "0"]
+
+
+@pytest.mark.parametrize("flags", [["--cache"], ["--cache-dir", "DIR"]])
+def test_cache_miss_then_exact_hit(poisson_file, harness_state, capsys,
+                                   flags):
+    d = harness_state / ("default_cache" if flags == ["--cache"] else "c")
+    flags = [str(d) if f == "DIR" else f for f in flags]
+    argv = ["--matrix", str(poisson_file), *AMG_CG_IR, *flags]
+    miss, _ = _rec(argv, capsys)
+    hit, _ = _rec(argv, capsys)
+    assert miss["setup_breakdown"]["hier_cache"] == "miss"
+    assert hit["setup_breakdown"]["hier_cache"] == "exact_hit"
+    assert hit["iters"] == miss["iters"]
+    assert hit["true_relres"] == miss["true_relres"] <= 1e-10
+    kinds = sorted({f.name.split("-")[0] for f in d.glob("*.npz")})
+    assert kinds == ["amg_hier", "amg_hier_pat", "ordering"]
+
+
+def test_cache_pattern_hit_through_the_cli(poisson_file, harness_state,
+                                           capsys):
+    """A same-pattern re-assembly, D·A·D with D smooth over the grid, hits
+    the pattern entry and converges on the re-formed hierarchy."""
+    import numpy as np
+
+    from lsbench_tpu_torch.matrix.csr import CsrMatrix
+    from lsbench_tpu_torch.matrix.generate import poisson_2d
+    from lsbench_tpu_torch.matrix.io import write_matrix
+    A = poisson_2d(20)
+    d = 1 + 0.5 * (np.arange(A.nrows) // 20) / 19
+    A2 = CsrMatrix(A.nrows, A.ncols, A.offs, A.cols,
+                   d[A.row_indices()] * A.vals * d[A.cols])
+    f2 = harness_state / "p20_dad.txt"
+    write_matrix(A2, str(f2))
+    c = ["--cache-dir", str(harness_state / "c")]
+    _rec(["--matrix", str(poisson_file), *AMG_CG_IR, *c], capsys)
+    rec, _ = _rec(["--matrix", str(f2), *AMG_CG_IR, *c], capsys)
+    bd = rec["setup_breakdown"]
+    assert bd["hier_cache"] == "pattern_hit_device_rap"
+    assert bd["rap_device_s"] >= 0
+    assert rec["converged"] is True and rec["true_relres"] <= 1e-10
+
+
+def test_cache_sparse_cholesky_factor(poisson_file, harness_state, capsys):
+    argv = ["--matrix", str(poisson_file), "--solver", "sparse_cholesky",
+            "--ordering", "amd", "--trials", "1", "--warmups", "0",
+            "--cache-dir", str(harness_state / "c")]
+    miss, _ = _rec(argv, capsys)
+    hit, _ = _rec(argv, capsys)
+    assert "factor_s" in miss["setup_breakdown"]
+    assert "factor_s" not in hit["setup_breakdown"]
+    assert hit["fill_nnz"] == miss["fill_nnz"]
+    assert hit["true_relres"] == miss["true_relres"] <= 1e-10
+
+
+def test_roofline_record(poisson_file, harness_state, capsys):
+    """`--roofline` adds the JAX CLI's roofline fields (and the function's
+    bytes); on the CPU the peak and the shares are null. (fp64 cg: the JAX
+    CLI's roofline of an f32 SpMV fails on the CPU, where x0 is f64.)"""
+    argv = ["--matrix", str(poisson_file), "--solver", "cg", "--trials",
+            "1", "--warmups", "0", "--roofline"]
+    rec, _ = _rec(argv, capsys)
+    j_rc, j_out, _ = _run(j_main, argv + ["--platform", "cpu", "--json"],
+                          capsys)
+    assert j_rc == 0
+    r, j_r = rec["roofline"], json.loads(j_out[2])["roofline"]
+    assert set(j_r) <= set(r)
+    assert r["stream_bytes"] > 0 and r["spmv_s"] > 0
+    assert r["peak_gbps"] is None and r["hbm_utilization"] is None
+
+
+def test_roofline_without_a_streaming_spmv(poisson_file, harness_state,
+                                           capsys):
+    rec, err = _rec(["--matrix", str(poisson_file), "--solver", "cholmod",
+                     "--trials", "1", "--warmups", "0", "--roofline"], capsys)
+    assert "roofline: solver has no streaming SpMV" in err
+    assert "roofline" not in rec
+
+
+def test_profile_dir_writes_a_trace(poisson_file, harness_state, capsys):
+    from lsbench_tpu_torch.harness.profile_solve import _device_events
+    d = harness_state / "prof"
+    _rec(["--matrix", str(poisson_file), "--solver", "cg_ir", "--trials",
+          "1", "--warmups", "0", "--profile-dir", str(d)], capsys)
+    traces = list(d.glob("*.json"))
+    assert len(traces) == 1
+    with open(traces[0]) as f:
+        assert json.load(f)["traceEvents"]
+    assert _device_events(str(traces[0])) == []  # the CPU has no device
+
+
+def test_debug_nans_same_solve(poisson_file, harness_state, capsys):
+    from lsbench_tpu_torch.utils import debug
+    argv = ["--matrix", str(poisson_file), "--solver", "cg_ir", "--ordering",
+            "rcm", "--rtol", "1e-10", "--trials", "1", "--warmups", "0"]
+    plain, _ = _rec(argv, capsys)
+    assert not debug.debug_nans_enabled()
+    checked, _ = _rec(argv + ["--debug-nans"], capsys)
+    assert debug.debug_nans_enabled()
+    assert checked["iters"] == plain["iters"]
+    assert checked["true_relres"] == plain["true_relres"]
