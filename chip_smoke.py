@@ -161,6 +161,26 @@ Phases, each of which raises (exit code 1) on failure:
    sparse Cholesky factor (`sparse_cholesky --ordering amd` through the
    solver API on the file the CLI reads): a miss, then a hit with the same
    x bit for bit, into the cache phases 12 and 17 read.
+19. Distributed paths (`parallel/`, run first, right after the build and
+   before any torch.profiler session, which would leave a cost on every
+   later CUDA call; its paths are listed first): the CLI with `--devices
+   1`, an NCCL group of
+   one on the card: `cg_ir --ordering rcm --rtol 1e-10` (SELL f32 and f64)
+   and `cg --nrhs 8` (the simultaneous-column block CG: SELL SpMM and SELL
+   f64) on poisson_2d(512), and `ginkgo` (f64 BiCGSTAB, rtol 1e-4), `gmres`
+   and `cg` (f64, rtol 1e-10, SELL f64) on random_spd(6408, 23), each with
+   strategy "halo", local SpMV "bsr", no BSR launch, its iterations,
+   passes, solve_s and wall time beside the single-device run of the same
+   command, run right after it; the distributed `cg_ir` x within 1e-9 of the single-device x
+   (solver API, group backend "nccl"), the host time of one `fused_psum`
+   on NCCL at world size 1, and `cg_ir` on poisson_2d(128) with and
+   without `--devices 1` (the same iterations; the cost per iteration of
+   the collectives); the D = 4 per-rank operators of RCM
+   poisson_2d(512) on the card: each rank's SELL f32, f64 and k = 8 SpMM
+   kernels on an x_ext assembled by hand, against their plain versions
+   (1e-5, 1e-13, 1e-5 of max|y|) and, rows concatenated, the host product
+   (f64 within 1e-13, SpMM within 2e-5); `--devices` one more than the
+   cards exits 1 with "requested N devices, have M".
 
 Each path's launch counts are read from counters set to 0 just before it.
 Beside each kernel's times the record carries the bound of its function
@@ -231,7 +251,12 @@ KERNELS = {
     "tri_sweep_f64": ("tri_sweep_f64", TRI_SOURCE, TRI_REPLACES),
 }
 # The main-path runs whose launch counts the record lists, in order.
-PATHS = ("cg_ir --roofline poisson_2d(512) + random_spd(6408,23)",
+PATHS = ("cg_ir --devices 1 poisson_2d(512)",
+         "cg --nrhs 8 --devices 1 poisson_2d(512)",
+         "ginkgo --devices 1 random_spd(6408,23)",
+         "gmres --devices 1 random_spd(6408,23)",
+         "cg --devices 1 random_spd(6408,23)",
+         "cg_ir --roofline poisson_2d(512) + random_spd(6408,23)",
          "cg_ir amg_classical poisson_2d(512)", "hypre poisson_2d(512)",
          "hypre poisson_2d(128)", "cg --nrhs 8 poisson_2d(512)",
          "cg --nrhs 8 random_spd(6408,23)", "ginkgo --nrhs 8 poisson_2d(512)",
@@ -2393,6 +2418,193 @@ def harness_paths_phase(tmp: str, matrices, amg_cache: str,
     return counts
 
 
+def distributed_paths_phase(tmp: str, matrices, card: str) -> list[dict]:
+    """The row-partitioned solvers (`parallel/`) through the CLI with
+    `--devices 1`: an NCCL group of one on the card, every collective a
+    real NCCL call. `cg_ir --ordering rcm --rtol 1e-10` and `cg --nrhs 8`
+    on poisson_2d(512), `ginkgo` (f64 BiCGSTAB, rtol 1e-4), `gmres` and `cg`
+    (f64) on random_spd(6408,23), each through the SELL kernels of its
+    precision, then the single-device run of the same command. Then,
+    not counted as paths: the distributed `cg_ir` x against the
+    single-device x (< 1e-9), the D = 4 per-rank operators of RCM
+    poisson_2d(512) (each rank's SELL f32, f64 and k = 8 SpMM kernels on an
+    x_ext assembled by hand, against their plain versions and, rows
+    concatenated, the host product), and `--devices` one more than the
+    cards exiting 1 with the JAX package's message. Returns each path's
+    launch counts."""
+    import torch
+    import torch.distributed as dist
+
+    from lsbench_tpu_torch.harness.cli import main as cli_main
+    from lsbench_tpu_torch.matrix.generate import poisson_2d
+    from lsbench_tpu_torch.matrix.io import write_matrix
+    from lsbench_tpu_torch.ops import spmv_sell
+    from lsbench_tpu_torch.ordering import get_ordering
+    from lsbench_tpu_torch.parallel.dist_cg_ir import DistributedCgIr
+    from lsbench_tpu_torch.parallel.dist_spmv import (build_halo_sell_plan,
+                                                      fused_psum)
+    from lsbench_tpu_torch.parallel.mesh import make_row_mesh
+    from lsbench_tpu_torch.solvers.refine import CgIrSolver
+
+    files = {}
+    for label, A in matrices.items():
+        files[label] = os.path.join(tmp, label.split("(")[0] + "_dist.txt")
+        write_matrix(A, files[label])
+    quick = ["--trials", "2", "--warmups", "1", "--json"]
+    p512, rspd = "poisson_2d(512)", "random_spd(6408,23)"
+    runs = (  # (label, matrix, argv, precision, rtol, kernels that must run)
+        ("cg_ir", p512, ["--solver", "cg_ir", "--ordering", "rcm", "--rtol",
+                         "1e-10", "--trials", "1", "--warmups", "0",
+                         "--json"], "fp64(fp32_ir_auto)", 1e-10,
+         ("sell_f32", "sell_f64")),
+        ("cg --nrhs 8", p512, ["--solver", "cg", "--nrhs", "8", "--ordering",
+                               "rcm", "--rtol", "1e-10", "--trials", "1",
+                               "--warmups", "0", "--json"],
+         "fp64(fp32_ir)", 1e-10, ("sell_mm_f32", "sell_f64")),
+        ("ginkgo", rspd, ["--solver", "ginkgo", "--ordering", "rcm", *quick],
+         "fp64", 1e-4, ("sell_f64",)),
+        ("gmres", rspd, ["--solver", "gmres", "--ordering", "rcm", "--rtol",
+                         "1e-10", *quick], "fp64", 1e-10, ("sell_f64",)),
+        ("cg", rspd, ["--solver", "cg", "--ordering", "rcm", "--rtol",
+                      "1e-10", *quick], "fp64", 1e-10, ("sell_f64",)))
+    counts = []
+    for label, matrix, argv, precision, rtol, expect in runs:
+        t0 = time.perf_counter()
+        rec, ran, wall = cli_path(f"{label} --devices 1 {matrix}",
+                                  files[matrix], [*argv, "--devices", "1"])
+        check(rec["precision"] == precision and rec["strategy"] == "halo"
+              and rec["local_spmv"] == "bsr",
+              f"{label} --devices 1: precision {rec['precision']} strategy "
+              f"{rec.get('strategy')} local_spmv {rec.get('local_spmv')}")
+        check(rec["converged"] is True and rec["true_relres"] <= rtol,
+              f"{label} --devices 1 {matrix}: true_relres "
+              f"{rec['true_relres']:.3e} > {rtol}")
+        for k in expect:
+            check(ran[k] > 0, f"{label} --devices 1: kernel {k} never "
+                              f"launched {ran}")
+        check(all(ran[k] == 0 for k in ran if k.startswith("bsr")),
+              f"{label} --devices 1: a BSR kernel launched {ran}")
+        # The single-device run of the same command, right after it.
+        one, _, one_wall = cli_path(f"{label} {matrix}", files[matrix], argv)
+        print(f"distributed path {label} --devices 1 {matrix}: "
+              f"iters={rec['iters']} passes={rec.get('refine_passes')} "
+              f"true_relres={rec['true_relres']:.3e} setup_s="
+              f"{rec['setup_s']:.3f} solve_s={rec['solve_s']:.4f} "
+              f"first_call_s={rec['first_call_s']:.3f} cli_wall_s={wall:.2f}"
+              f" | single-device {one['solver']} ({one['precision']}): "
+              f"iters={one['iters']} passes={one.get('refine_passes')} "
+              f"solve_s={one['solve_s']:.4f} cli_wall_s={one_wall:.2f} | "
+              f"{card} | launches={ran} "
+              f"phase_s={time.perf_counter() - t0:.2f}")
+        counts.append(ran)
+
+    # The distributed x against the single-device x, and the cost of one
+    # fused all_reduce on NCCL at world size 1 (not paths).
+    t0 = time.perf_counter()
+    A = matrices[p512]
+    b = np.arange(A.nrows, dtype=np.float64)
+    with make_row_mesh(1, platform="cuda") as mesh:
+        check(dist.get_backend(mesh.group) == "nccl",
+              f"the card's group is {dist.get_backend(mesh.group)}")
+        x_d = DistributedCgIr(A, mesh, ordering="rcm").solve(b).x
+        one = torch.ones((), device=mesh.device)
+        fused_psum(mesh, one, one)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(1000):
+            s = fused_psum(mesh, one, one)
+        float(s[0])
+        psum_us = (time.perf_counter() - t1) * 1e3
+    x_s = CgIrSolver(A, ordering="rcm", device="cuda").solve(b).x
+    rel = float(torch.linalg.norm(x_d - x_s) / torch.linalg.norm(x_s))
+    check(rel < 1e-9, f"cg_ir --devices 1 x vs single-device x: {rel:.3e}")
+    print(f"cg_ir --devices 1 vs single-device x, {p512}: ‖Δx‖/‖x‖ = "
+          f"{rel:.3e} (< 1e-9), group backend nccl; one fused_psum of two "
+          f"scalars on NCCL at world size 1: {psum_us:.2f} µs (host clock, "
+          f"1000 calls); {time.perf_counter() - t0:.2f} s")
+    # The same at n=16384: the per-iteration price of the collectives.
+    f128 = os.path.join(tmp, "poisson_2d_128_dist.txt")
+    write_matrix(poisson_2d(128), f128)
+    small = ["--solver", "cg_ir", "--ordering", "rcm", "--rtol", "1e-10",
+             "--trials", "2", "--warmups", "1", "--json"]
+    r1 = cli_path("cg_ir poisson_2d(128)", f128, small)[0]
+    rd = cli_path("cg_ir --devices 1 poisson_2d(128)", f128,
+                  [*small, "--devices", "1"])[0]
+    check(rd["iters"] == r1["iters"], f"poisson_2d(128): {rd['iters']} "
+                                      f"iterations, single {r1['iters']}")
+    print(f"cg_ir poisson_2d(128): --devices 1 solve_s={rd['solve_s']:.4f}, "
+          f"single-device {r1['solve_s']:.4f}, {rd['iters']} iterations: "
+          f"+{(rd['solve_s'] - r1['solve_s']) / rd['iters'] * 1e6:.1f} µs "
+          f"per iteration")
+
+    # Each D = 4 rank's operator on the card, from an x_ext built by hand.
+    t0 = time.perf_counter()
+    Ar = A.permuted(get_ordering("rcm", A))
+    D, dev = 4, torch.device("cuda")
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal(Ar.nrows)
+    X = rng.standard_normal((Ar.nrows, 8))
+    ys, Ys, errs = [], [], {"f32": 0.0, "f64": 0.0, "mm": 0.0}
+    for r in range(D):
+        p = build_halo_sell_plan(Ar, D, r, (torch.float32, torch.float64),
+                                 device=dev)
+        lo, H = r * p.nloc, p.halo
+        check(not p.needs_all_gather and H > 0, f"rank {r}: halo {H}")
+
+        def ext(v):
+            pad = np.zeros((p.n_pad + 2 * H, *v.shape[1:]))
+            pad[H: H + Ar.nrows] = v
+            return torch.as_tensor(pad[lo: lo + p.n_ext], device=dev)
+        x64 = ext(x)
+        x32 = x64.float()
+        X32 = ext(X).float().contiguous()
+        y32 = spmv_sell.spmv_sell(p.sell, x32)
+        y64 = spmv_sell.spmv_sell_f64(p.sell, x64)
+        Y32 = spmv_sell.spmm_sell(p.sell, X32)
+        torch.cuda.synchronize()
+        scale, mscale = float(y64.abs().max()), float(Y32.abs().max())
+        e32 = float((y32 - spmv_sell.spmv_sell_plain(p.sell, x32)).abs().max())
+        e64 = float((y64 - spmv_sell.spmv_sell_f64_plain(p.sell, x64)
+                     ).abs().max())
+        emm = float((Y32 - spmv_sell.spmm_sell_plain(p.sell, X32)).abs().max())
+        check(e32 <= 1e-5 * scale and e64 <= 1e-13 * scale
+              and emm <= 1e-5 * mscale,
+              f"rank {r} of 4: kernel vs plain f32 {e32:.3e} f64 {e64:.3e} "
+              f"spmm {emm:.3e} (scale {scale:.3e})")
+        errs = {"f32": max(errs["f32"], e32), "f64": max(errs["f64"], e64),
+                "mm": max(errs["mm"], emm)}
+        ys.append(y64.cpu().numpy())
+        Ys.append(Y32.double().cpu().numpy())
+        print(f"  rank {r} of 4: rows [{lo}, {lo + p.nloc}) halo {H} n_ext "
+              f"{p.n_ext} stored {p.sell.n_stored} nnz {p.sell.nnz}")
+    y = np.concatenate(ys)[: Ar.nrows]
+    Y = np.concatenate(Ys)[: Ar.nrows]
+    host = Ar.matvec(x)
+    host_X = np.stack([Ar.matvec(X[:, j]) for j in range(8)], axis=1)
+    g64 = float(np.abs(y - host).max() / np.abs(host).max())
+    gmm = float(np.abs(Y - host_X).max() / np.abs(host_X).max())
+    check(g64 <= 1e-13 and gmm <= 2e-5,
+          f"D=4 ranks concatenated vs host: f64 {g64:.3e} spmm {gmm:.3e}")
+    print(f"D=4 per-rank operators, RCM {p512}: max |kernel - plain| "
+          f"f32 {errs['f32']:.3e} f64 {errs['f64']:.3e} spmm(k=8) "
+          f"{errs['mm']:.3e}; ranks concatenated vs host f64: f64 "
+          f"{g64:.3e}, spmm {gmm:.3e} (relative to max|y|); "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # More ranks than cards: refused before any rank starts.
+    have = torch.cuda.device_count()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err), \
+            contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = cli_main(["--matrix", files[rspd], "--solver", "cg_ir",
+                       "--devices", str(have + 1)])
+    msg = f"requested {have + 1} devices, have {have}"
+    check(rc == 1 and msg in err.getvalue() and not out.getvalue(),
+          f"--devices {have + 1}: rc {rc}, stderr {err.getvalue()!r}")
+    print(f"--devices {have + 1} on {have} card(s): exit 1, \"{msg}\"")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2407,11 +2619,18 @@ def main() -> int:
     print(f"build: {build_kernels():.2f} s")
 
     matrices = main_path_matrices()
+    # First, before any torch.profiler session: a session leaves a cost on
+    # every later CUDA call of the process, which the distributed paths
+    # (more calls per iteration) feel more than the single-device ones.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path_counts = distributed_paths_phase(tmp, matrices, card)
+    print(f"phase distributed paths: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     measured, bsr_api_counts = kernel_phase(matrices)
     print(f"phase kernels: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    path_counts = [main_path_phase(matrices)]
+    path_counts.append(main_path_phase(matrices))
     print(f"phase cg_ir paths: {time.perf_counter() - t0:.2f} s")
 
     from lsbench_tpu_torch.matrix.generate import poisson_2d

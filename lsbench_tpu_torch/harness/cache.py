@@ -108,7 +108,9 @@ def store_arrays(kind: str, key: str, arrays: dict) -> None:
         return
     d = cache_dir()
     d.mkdir(parents=True, exist_ok=True)
-    tmp = _path(kind, key).with_suffix(".tmp.npz")
+    # One temporary file per process: the ranks of a `--devices` run store
+    # the same entry at once.
+    tmp = _path(kind, key).with_suffix(f".{os.getpid()}.tmp.npz")
     try:
         np.savez(tmp, **arrays)
         os.replace(tmp, _path(kind, key))

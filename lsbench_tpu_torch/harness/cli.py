@@ -14,17 +14,24 @@ PyTorch versions. `--cache`/`--cache-dir` turn on the setup cache
 (`harness/cache.py`), `--profile-dir` traces the timed loop and
 `--roofline` reports the solver's SpMV against the card's HBM peak
 (`harness/profile.py`), `--debug-nans` makes every kernel wrapper raise on a
-NaN (`utils/debug.py`). Flags whose machinery is not ported yet exit 1 with
-a message; a layout, preconditioner or solve schedule that is not ported
-yet does too, and nothing else is substituted for it.
+NaN (`utils/debug.py`). `--devices N` runs the row-partitioned solver of
+the JAX CLI's mapping on N ranks (`parallel/`): this process is rank 0 and
+the others are spawned; on `--platform cuda` each rank takes one card and
+the group is NCCL, on `--platform cpu` the ranks are gloo processes.
+Flags whose machinery is not ported yet exit 1 with a message; a layout,
+preconditioner or solve schedule that is not ported yet does too, and
+nothing else is substituted for it.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import sys
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -32,6 +39,8 @@ import torch
 from lsbench_tpu_torch.harness.bench import (BenchRecord, reference_rhs,
                                              run_bench)
 from lsbench_tpu_torch.matrix.io import MatrixFormatError, read_matrix
+from lsbench_tpu_torch.parallel.mesh import (GROUP_TIMEOUT_S, check_devices,
+                                             make_row_mesh)
 from lsbench_tpu_torch.solvers.base import get_solver, list_solvers
 
 ORDERINGS = ("none", "rcm", "amd", "metis")
@@ -43,8 +52,7 @@ PRECISION_DTYPES = {
 }
 
 # Flags of the JAX CLI whose machinery is not ported yet (ROADMAP.md).
-_NOT_PORTED = (("devices", "--devices"), ("mesh", "--mesh"),
-               ("coordinator", "--coordinator"))
+_NOT_PORTED = (("mesh", "--mesh"), ("coordinator", "--coordinator"))
 # Solvers of the JAX package's registry that are not ported yet: refused,
 # where an unknown name would fall back to the default solver. None.
 _NOT_PORTED_SOLVERS = ()
@@ -103,8 +111,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="raise FloatingPointError on a NaN out of any "
                         "kernel wrapper (the sanitizer role; syncs each "
                         "call)")
+    p.add_argument("--devices", type=int, default=None,
+                   help="solve on N ranks over a block-row partition (one "
+                        "card each on cuda, gloo processes on cpu)")
     # Accepted so reference command lines parse; not ported yet.
-    p.add_argument("--devices", type=int, default=None, help="not yet ported")
     p.add_argument("--mesh", default=None, metavar="RxC", help="not yet ported")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
                    help="not yet ported")
@@ -148,9 +158,23 @@ def _parse_opt_value(v: str):
     return v
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+@dataclass
+class _Prepared:
+    """What every rank of a run needs, resolved from the command line."""
+    A: object
+    b: np.ndarray
+    solver_name: str
+    cls: type
+    params: dict
+    ordering: str
+    precision: str
+    platform: str
+    dist: tuple | None  # (class, kwargs) of the distributed solver
 
+
+def _prepare(args) -> _Prepared | int:
+    """Validate the command line, read the matrix and resolve the solver;
+    an int is the exit code of a refusal (its message printed)."""
     precision = args.precision.lower()
     if precision not in PRECISION_DTYPES:
         print(f"Precision '{args.precision}' is not implemented "
@@ -171,6 +195,12 @@ def main(argv=None) -> int:
               "--platform cpu to run the plain PyTorch versions).",
               file=sys.stderr)
         return 1
+    if args.devices is not None:
+        try:
+            check_devices(args.devices, platform)
+        except ValueError as e:
+            print(str(e), file=sys.stderr)
+            return 1
     device = torch.device(platform)
 
     if args.solver is not None and args.solver.lower() in _NOT_PORTED_SOLVERS:
@@ -269,30 +299,131 @@ def main(argv=None) -> int:
         k, v = kv.split("=", 1)
         params[k] = _parse_opt_value(v)
 
-    # Device initialization outside the setup timer, attributed on its own.
-    t0 = time.perf_counter()
-    torch.empty(0, device=device)
-    backend_init_s = time.perf_counter() - t0
+    dist_solver = None
+    if args.devices is not None:
+        dist_solver = _make_distributed(solver_name, args, params)
+        if dist_solver is None:
+            return 1
+    return _Prepared(A=A, b=b, solver_name=solver_name, cls=cls,
+                     params=params, ordering=ordering, precision=precision,
+                     platform=platform, dist=dist_solver)
 
+
+def _make_distributed(solver_name: str, args, params):
+    """Map a solver name onto its row-partitioned implementation, as the
+    JAX CLI's `_make_distributed` does (lsbench_tpu/harness/cli.py:357-519):
+    (class, keyword arguments), or None with the refusal printed."""
+    from lsbench_tpu_torch.parallel.dist_bicgstab import DistributedBicgstab
+    from lsbench_tpu_torch.parallel.dist_block_cg import DistributedBlockCg
+    from lsbench_tpu_torch.parallel.dist_cg import DistributedCg
+    from lsbench_tpu_torch.parallel.dist_cg_ir import (DistributedBicgstabIr,
+                                                       DistributedCgIr,
+                                                       DistributedGmresIr)
+    from lsbench_tpu_torch.parallel.dist_gmres import DistributedGmres
+
+    if solver_name in ("amg", "hypre", "amgx", "paralmond") or (
+            solver_name in ("cg", "cg_ir")
+            and args.precond in ("amg", "amg_classical")):
+        print(f"--devices with AMG ('{solver_name}', --precond "
+              f"{args.precond}) is not yet ported to lsbench_tpu_torch "
+              "(see ROADMAP.md).", file=sys.stderr)
+        return None
+    kw = {}
+    if args.rtol is not None:
+        kw["rtol"] = args.rtol
+    if args.maxiter is not None:
+        kw["maxiter"] = args.maxiter
+    dtype = params.get("dtype", "float64")
+    mixed = dtype == "mixed"
+    kw["ordering"] = params.get("ordering", "none")
+    # Distributed --opt knobs.
+    for k in ("local_spmv", "strategy", "inner_rtol", "max_refine",
+              "row_align", "precond", "block_size", "restart"):
+        if k in params:
+            kw[k] = params[k]
+    if solver_name in ("bicgstab", "ginkgo", "bicgstab_ir"):
+        if solver_name == "ginkgo":
+            kw.setdefault("rtol", 1e-4)  # ginkgo.cpp:61
+        if mixed or solver_name == "bicgstab_ir":
+            return DistributedBicgstabIr, kw
+        return DistributedBicgstab, dict(kw, dtype=dtype)
+    if solver_name == "cg_ir" or (solver_name == "cg" and mixed):
+        kw.setdefault("rtol", 1e-10)
+        return DistributedCgIr, kw
+    if solver_name == "cg":
+        return DistributedCg, dict(kw, dtype=dtype)
+    if solver_name in ("gmres", "gmres_ir"):
+        if mixed or solver_name == "gmres_ir":
+            kw.setdefault("rtol", 1e-10)
+            return DistributedGmresIr, kw
+        return DistributedGmres, dict(kw, dtype=dtype)
+    if solver_name == "block_cg":
+        kw.setdefault("rtol", 1e-10)
+        return DistributedBlockCg, dict(kw, nrhs=max(args.nrhs, 1))
+    print(f"solver '{solver_name}' has no distributed implementation "
+          "(distributed: cg, cg_ir, block_cg, gmres, gmres_ir, bicgstab, "
+          "bicgstab_ir, ginkgo; all Krylov families accept --precision "
+          "fp32_ir; the AMG family is not ported yet).", file=sys.stderr)
+    return None
+
+
+def _run(args, prep: _Prepared, ranks: tuple | None = None) -> int:
+    """Set up the solver, run the timed trials and print the record. With
+    `ranks` = (n, rank, init_file) this process is that rank of a group
+    of n: it builds its shard of the distributed solver, runs the same
+    (collective) trials as every rank, and prints only as rank 0."""
+    # Device (and group) initialization outside the setup timer,
+    # attributed on its own.
+    t0 = time.perf_counter()
+    mesh = None
+    if ranks is not None:
+        n, rank, init_file = ranks
+        mesh = make_row_mesh(n, rank, init_file, prep.platform)
+        device = mesh.device
+    else:
+        device = torch.device(prep.platform)
+    try:
+        torch.empty(0, device=device)
+        backend_init_s = time.perf_counter() - t0
+        return _bench_and_report(args, prep, device, mesh, backend_init_s)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _bench_and_report(args, prep: _Prepared, device, mesh,
+                      backend_init_s: float) -> int:
+    A, b = prep.A, prep.b
+    report = mesh is None or mesh.rank == 0
     t0 = time.perf_counter()
     try:
-        solver = cls(A, **params)
-    except NotImplementedError as e:
-        print(str(e), file=sys.stderr)
+        if mesh is not None:
+            dist_cls, kw = prep.dist
+            solver = dist_cls(A, mesh, **kw)
+        else:
+            solver = prep.cls(A, **prep.params)
+    except (NotImplementedError, ValueError) as e:
+        if mesh is None and isinstance(e, ValueError):
+            raise
+        # A shard that cannot be built is refused on every rank alike.
+        if report:
+            print(str(e), file=sys.stderr)
         return 1
     setup_s = time.perf_counter() - t0
 
     bench = dict(trials=args.trials, warmups=args.warmups,
-                 matrix_name=args.matrix, ordering=ordering,
-                 precision=precision, setup_s=setup_s)
-    if args.profile_dir:
+                 matrix_name=args.matrix, ordering=prep.ordering,
+                 precision=prep.precision, setup_s=setup_s)
+    if args.profile_dir and report:
         from lsbench_tpu_torch.harness.profile import trace
         with trace(args.profile_dir, device):
             rec = run_bench(solver, b, **bench)
     else:
         rec = run_bench(solver, b, **bench)
+    if not report:
+        return 0
     # Report under the reference's original solver name for comparability.
-    rec.solver = solver_name
+    rec.solver = prep.solver_name
     rec.extra["backend_init_s"] = backend_init_s
     rec.extra["device"] = (torch.cuda.get_device_name(device)
                            if device.type == "cuda" else "cpu")
@@ -314,6 +445,57 @@ def main(argv=None) -> int:
     if args.json or args.verbose >= 1:
         print(json.dumps(rec.to_json()))
     return 0
+
+
+def _run_ranks(argv: list, args, prep: _Prepared) -> int:
+    """`--devices N`: this process is rank 0; ranks 1..N−1 are spawned
+    processes that run the same command line (`parallel/launch.py`). The
+    exit code is nonzero if any rank failed."""
+    from lsbench_tpu_torch.parallel import launch
+
+    n = args.devices
+    threads = torch.get_num_threads()
+    with launch.rendezvous() as init_file:
+        procs = launch.spawn_cli_ranks(argv, n, init_file)
+        rc = 1
+        try:
+            # The ranks share the host's cores (and spin while they wait).
+            torch.set_num_threads(launch.threads_per_rank(n))
+            rc = _run(args, prep, (n, 0, init_file))
+        finally:
+            torch.set_num_threads(threads)
+            # A rank that failed leaves the others waiting in a collective
+            # until the group's timeout: stop them at once.
+            codes = launch.stop(procs, GROUP_TIMEOUT_S + 30 if rc == 0
+                                else 0)
+    failed = [(r + 1, c) for r, c in enumerate(codes) if c != 0]
+    for rank, code in failed:
+        print(f"--devices {n}: rank {rank} "
+              + ("did not finish" if code is None else f"exited {code}"),
+              file=sys.stderr)
+    return rc or (1 if failed else 0)
+
+
+def run_rank(argv: list, rank: int, n: int, init_file: str) -> int:
+    """Rank `rank` ≥ 1 of `--devices n`: the command line as rank 0 ran
+    it (rank 0 printed its messages), in the group of `init_file`."""
+    args = build_parser().parse_args(argv)
+    with contextlib.redirect_stderr(io.StringIO()):
+        prep = _prepare(args)
+    if isinstance(prep, int):
+        return prep
+    return _run(args, prep, (n, rank, init_file))
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_parser().parse_args(argv)
+    prep = _prepare(args)
+    if isinstance(prep, int):
+        return prep
+    if args.devices is None:
+        return _run(args, prep)
+    return _run_ranks(argv, args, prep)
 
 
 if __name__ == "__main__":

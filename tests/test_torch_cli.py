@@ -273,7 +273,8 @@ def test_missing_or_malformed_file(tmp_path, capsys, content):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--devices", "2"], ["--mesh", "2x4"], ["--solver", "hypre", "--nrhs", "2"],
+    ["--solver", "hypre", "--devices", "2"], ["--mesh", "2x4"],
+    ["--solver", "hypre", "--nrhs", "2"],
     ["--coordinator", "localhost:1234"],
     ["--platform", "tpu"],
 ])
