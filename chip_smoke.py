@@ -122,18 +122,28 @@ Phases, each of which raises (exit code 1) on failure:
    (not a path: fp64 `gmres` delegates to `gmres_ir`): `gmres_loop` in
    f64 on `spmv_sell_f64`, true relres, inner iterations and solve
    seconds of each.
-16. The triangular-sweep kernel (`tri_sweep_f32`, `tri_sweep_f64`, one
-   launch per sweep) against its plain version (the JAX package's `_sweep`
-   in torch ops) on the IC(0) factor of RCM poisson_2d(512) and the AMD
-   sparse Cholesky factor of poisson_2d(512), in f32 and f64, and on the
-   IC(0) factor of RCM random_spd(6408, 23) in f64: each sweep within
-   1e-5·max|x| (f32) or 1e-12·max|x| (f64), bitwise repeatable, the apply
-   within 1e-4 (f32) or 1e-12 (f64) of the host's f64 `spchol.tri_solve`,
-   its error word clear and its claim counter back at 0; levels, ms per
-   sweep and per apply, µs per level, profiler device ms, the plain
-   version's ms, the bytes bound, cuSPARSE's SpSV
+16. The triangular-sweep kernels (`tri_sweep_f32`, `tri_sweep_f64`: the
+   one-CTA run and pair kernels and the wide-level kernel, which also runs
+   a run's pre-pass; one launch per segment of a sweep's plan, all from
+   one call) against their plain version (the JAX package's
+   `_sweep` in torch ops) on the IC(0) factor of RCM poisson_2d(512) and
+   the AMD sparse Cholesky factor of poisson_2d(512), in f32 and f64, and
+   on the IC(0) factor of RCM random_spd(6408, 23) in f64: each sweep
+   within 1e-5·max|x| (f32) or 1e-12·max|x| (f64), one launch per
+   segment, bitwise repeatable, the apply within 1e-4 (f32) or 1e-12 (f64)
+   of the host's f64 `spchol.tri_solve`; k = 8 columns in one launch per
+   segment, bitwise repeatable, each column within the same tolerance of
+   its k = 1 sweep; a forced capacity (256 rows on IC(0) of
+   poisson_2d(512) in f32, 64 on IC(0) of random_spd in f64) so that runs
+   and wide levels both run on the card, against the plain version;
+   levels, launches per sweep, ms per sweep (k = 1 and k = 8) and per
+   apply, µs per level, the kernels' own device ms per sweep (profiler:
+   the events' summed durations, none where the trace lost one),
+   the plain version's ms, the bytes bound, cuSPARSE's SpSV
    (`torch.triangular_solve` with a sparse CSR L, or why it is refused)
-   and the host solve's ms.
+   and the host solve's ms; then the chain floor: a bidiagonal L, n =
+   4096, one row per level, one launch of the pair kernel, its µs per
+   level beside its bytes bound.
 17. The slice-10 paths through the CLI, each to true relres ≤ 1e-10: `cg_ir
    --precond ic0` (RCM) on poisson_2d(512) (`tri_sweep_f32`, SELL f32 and
    f64), fp64 `cg --precond ic0` (RCM) on random_spd(6408, 23)
@@ -1939,21 +1949,124 @@ def spsv_ms(cp, ci, cx, b, lower: bool) -> tuple[float | None, str]:
         return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
 
 
+def profiled_sweep_ms(fn, args, launches: int, sweeps: int = 20
+                      ) -> tuple[float | None, int]:
+    """The sweep kernels' own device time per sweep: the length of the
+    union of the `tri_sweep_*_kernel` events' intervals in the profiler's
+    trace of `sweeps` calls of fn(*args) (of `launches` launches each),
+    over `sweeps` (a union, not a sum: each launch is a programmatic
+    dependent launch, which may start while the one before it runs and
+    wait for it); and the number of such events. A first traced sweep, not
+    counted, and a ~10 ms spin kernel at the start of the measured trace
+    warm the profiler up (traces have lost the events of their first
+    milliseconds). None for the time where the trace holds another number
+    of events than it launched."""
+    import torch
+
+    from lsbench_tpu_torch.harness.profile_solve import _union_us
+
+    def run():
+        torch.cuda._sleep(20_000_000)
+        for _ in range(sweeps):
+            fn(*args)
+    traced_device_events(lambda: fn(*args))
+    events = [e for e in traced_device_events(run)
+              if e["cat"] == "kernel" and "tri_sweep_" in e["name"]]
+    if len(events) != sweeps * launches:
+        return None, len(events)
+    return _union_us(events) / sweeps / 1e3, len(events)
+
+
+def _plan_summary(S) -> str:
+    from lsbench_tpu_torch.ops import tri_sweep as ts
+    runs = [(int(l1 - l0), int(w)) for k, l0, l1, w in S.plan
+            if k not in (ts.WIDE, ts.PRE)]
+    pairs = sum(1 for k in S.plan[:, 0] if k == ts.PAIR)
+    pres = sum(1 for k in S.plan[:, 0] if k == ts.PRE)
+    wide = sum(1 for k in S.plan[:, 0] if k == ts.WIDE)
+    lanes = np.bincount(S.lvl_lg.cpu().numpy().astype(np.int64))
+    return (f"{len(S.plan)} launches ({len(runs)} runs ({pairs} pair, "
+            f"{pres} after a pre-pass launch) of "
+            f"{sum(n for n, _ in runs)} levels on "
+            f"{sorted({w for _, w in runs})} threads, {wide} wide; levels "
+            f"by lanes per row "
+            f"{ {1 << i: int(c) for i, c in enumerate(lanes) if c} })")
+
+
+def tri_chain_floor(dev) -> dict:
+    """The run kernel on a pure chain: a bidiagonal L (diagonal 2,
+    subdiagonal −1), n = 4096, every level one row: one run launch per
+    `MAX_RUN_LEVELS` levels. Each sweep within the tolerance of its plain
+    version; the µs per level of the forward sweep is the design's
+    per-level floor, printed beside the bytes bound."""
+    import torch
+
+    from lsbench_tpu_torch.ops import tri_sweep as ts
+    from lsbench_tpu_torch.solvers import sparse_cholesky as sc
+
+    n = 4096
+    cp = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.r_[np.full(n - 1, 2), 1], out=cp[1:])
+    ci = np.empty(cp[-1], dtype=np.int64)
+    ci[cp[:-1]] = np.arange(n)
+    ci[cp[:-2] + 1] = np.arange(1, n)
+    cx = np.full(cp[-1], -1.0)
+    cx[cp[:-1]] = 2.0
+    host, meta = sc.pack_tri_host(cp, ci, cx, n)
+    check(meta["nlev_f"] == meta["nlev_b"] == n, "chain: one row per level")
+    b = np.random.default_rng(13).standard_normal(n)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        f64 = dtype == torch.float64
+        state = sc.upload_tri(host, dtype, dev, plain=True)
+        bt = torch.as_tensor(b, dtype=dtype, device=dev)
+        runs = -(-n // ts.MAX_RUN_LEVELS)
+        for S in (state.f, state.b):
+            x, x_p = ts.tri_sweep(S, bt), ts.tri_sweep_plain(S, bt)
+            err = float((x - x_p).abs().max())
+            tol = (1e-12 if f64 else 1e-5) * float(x_p.abs().max())
+            check(err <= tol and len(S.plan) == runs
+                  and set(S.plan[:, 0].tolist()) == {ts.PAIR},
+                  f"chain {dtype}: {err:.3e} > {tol:.3e} or plan "
+                  f"{S.plan.tolist()}")
+        ms = median_ms(lambda: ts.tri_sweep(state.f, bt))
+        dev_ms, _ = profiled_sweep_ms(ts.tri_sweep, (state.f, bt), runs)
+        vb = 8 if f64 else 4
+        nbytes = (n - 1) * (vb + 4) + 3 * n * vb
+        b_ms, _ = bound(nbytes, 2 * n, "f64" if f64 else "f32")
+        key = "f64" if f64 else "f32"
+        out[key] = dict(ms=ms, device_ms=dev_ms, us_per_level=ms * 1e3 / n,
+                        device_us_per_level=(None if dev_ms is None
+                                             else dev_ms * 1e3 / n),
+                        bound_ms=b_ms)
+        print(f"tri sweep chain floor [{key}, bidiagonal n={n}, {n} "
+              f"levels, {runs} launch(es)]: wrapper {ms:.4f} ms = "
+              f"{ms * 1e3 / n:.4f} us per level; device (profiler) "
+              f"{_fmt(dev_ms)} ms; bytes bound {b_ms:.4f} ms ({nbytes} B)")
+    return out
+
+
 def tri_sweep_phase(matrices) -> dict:
-    """The triangular-sweep kernel against its plain version (the JAX
+    """The triangular-sweep kernels against their plain version (the JAX
     package's `_sweep` in torch ops) on the factors the new paths sweep:
     the IC(0) factor of RCM poisson_2d(512) (f32: `cg_ir --precond ic0`;
     f64 too), the AMD sparse Cholesky factor of poisson_2d(512) (f32: the
     `level` schedule; f64 too) and the IC(0) factor of RCM
     random_spd(6408,23) (f64: `cg --precond ic0`). Each sweep within
-    1e-5·max|x| (f32) or 1e-12·max|x| (f64) of the plain version, bitwise
-    repeatable, its error word clear and its claim counter back at 0.
-    Prints the wrapper's CUDA-event ms per sweep and per apply, the
-    profiler's device ms, levels and µs per level, the plain version's ms,
-    the bytes bound (each factor entry, b, x and dinv read or written
-    once, ÷ 3.35 TB/s), cuSPARSE's SpSV (`torch.triangular_solve` with a
-    sparse CSR L) and the host's native `spchol.tri_solve` on the same
-    factor. Returns the record entries."""
+    1e-5·max|x| (f32) or 1e-12·max|x| (f64) of the plain version, one
+    launch per segment of its plan, bitwise repeatable; k = 8 columns in
+    one launch per segment, bitwise repeatable, each column within the
+    same tolerance of the k = 1 sweep of that column; a forced capacity
+    (256 rows on IC(0) of poisson_2d(512) in f32, 64 on IC(0) of
+    random_spd in f64) so that runs and wide levels alternate, against the
+    plain version. Prints the launches per sweep, the wrapper's
+    CUDA-event ms per sweep (k = 1 and 8) and per apply, µs per level, the
+    kernels' own device ms per sweep (profiler), the plain version's ms,
+    the bytes bound (each factor entry, b, x and dinv read or written once,
+    ÷ 3.35 TB/s), cuSPARSE's SpSV (`torch.triangular_solve` with a sparse
+    CSR L) and the host's native `spchol.tri_solve` on the same factor;
+    then the chain floor (`tri_chain_floor`). Returns the record
+    entries."""
     import torch
 
     from lsbench_tpu_torch.native import spchol
@@ -1974,15 +2087,27 @@ def tri_sweep_phase(matrices) -> dict:
         return sc.numeric_factor(As, *sc.symbolic_rows(
             As, sc.elimination_tree(As)))
 
-    cases = (  # (label, factor, dtypes, record key)
+    cases = (  # (label, factor, dtypes, record key, forced capacity)
         ("IC(0) poisson_2d(512) RCM", lambda: ic0_of(A512, "rcm"),
-         (torch.float32, torch.float64), None),
+         (torch.float32, torch.float64), None, (torch.float32, 256)),
         ("AMD factor poisson_2d(512)", lambda: amd_factor(A512),
-         (torch.float32, torch.float64), "amd_factor"),
+         (torch.float32, torch.float64), "amd_factor", None),
         ("IC(0) random_spd(6408,23) RCM", lambda: ic0_of(rspd, "rcm"),
-         (torch.float64,), "random_spd(6408,23)"))
+         (torch.float64,), "random_spd(6408,23)", (torch.float64, 64)))
     results = {}
-    for label, make, dtypes, key in cases:
+
+    def held(tag, S, b, x, tol_rel):
+        """x against the plain sweep; returns max |x − plain|."""
+        x_p = ts.tri_sweep_plain(S, b)
+        check(x.shape == b.shape and bool(torch.isfinite(x).all()),
+              f"{tag}: bad output")
+        err = float((x - x_p).abs().max())
+        tol = tol_rel * float(x_p.abs().max())
+        check(err <= tol, f"{tag}: max|kernel - plain| = {err:.3e} > "
+                          f"{tol:.3e}")
+        return err
+
+    for label, make, dtypes, key, forced in cases:
         t0 = time.perf_counter()
         cp, ci, cx = make()
         factor_s = time.perf_counter() - t0
@@ -1991,6 +2116,7 @@ def tri_sweep_phase(matrices) -> dict:
         host, meta = sc.pack_tri_host(cp, ci, cx, n)
         pack_s = time.perf_counter() - t0
         b_np = rng.standard_normal(n)
+        b8_np = rng.standard_normal((n, 8))
         host_x = spchol.tri_solve(cp, ci, cx, b_np)
         walls = []
         for _ in range(5):
@@ -2007,53 +2133,79 @@ def tri_sweep_phase(matrices) -> dict:
         for dtype in dtypes:
             f64 = dtype == torch.float64
             name = "tri_sweep_f64" if f64 else "tri_sweep_f32"
+            tol_rel = 1e-12 if f64 else 1e-5
             tag = f"{name} [{label}]"
             t0 = time.perf_counter()
             state = sc.upload_tri(host, dtype, dev, plain=True)
             torch.cuda.synchronize()
             upload_s = time.perf_counter() - t0
+            print(f"  {tag} plan: forward {_plan_summary(state.f)}, "
+                  f"backward {_plan_summary(state.b)}")
             b = torch.as_tensor(b_np, dtype=dtype, device=dev)
-            errs = {}
+            b8 = torch.as_tensor(b8_np, dtype=dtype, device=dev)
+            errs, k8_errs = {}, {}
             for sweep, S in (("f", state.f), ("b", state.b)):
-                x_k, x_again = ts.tri_sweep(S, b), ts.tri_sweep(S, b)
-                x_p = ts.tri_sweep_plain(S, b)
+                ts.reset_launches()
+                x_k = ts.tri_sweep(S, b)
                 torch.cuda.synchronize()
-                check(x_k.shape == (n,) and bool(torch.isfinite(x_k).all()),
-                      f"{tag} {sweep}: bad output")
-                check(torch.equal(x_k, x_again),
+                check(ts.LAUNCHES[name] == len(S.plan),
+                      f"{tag} {sweep}: {ts.LAUNCHES[name]} launches, plan "
+                      f"has {len(S.plan)}")
+                check(torch.equal(ts.tri_sweep(S, b), x_k),
                       f"{tag} {sweep}: not bitwise repeatable")
-                err = float((x_k - x_p).abs().max())
-                tol = (1e-12 if f64 else 1e-5) * float(x_p.abs().max())
-                check(err <= tol, f"{tag} {sweep}: max|kernel - plain| = "
-                                  f"{err:.3e} > {tol:.3e}")
-                errs[sweep] = err
+                errs[sweep] = held(f"{tag} {sweep}", S, b, x_k, tol_rel)
+                # k = 8: one launch per segment for all columns.
+                ts.reset_launches()
+                X = ts.tri_sweep(S, b8)
+                torch.cuda.synchronize()
+                check(ts.LAUNCHES[name] == len(S.plan),
+                      f"{tag} {sweep} k=8: {ts.LAUNCHES[name]} launches for "
+                      f"{len(S.plan)} segments")
+                check(torch.equal(ts.tri_sweep(S, b8), X),
+                      f"{tag} {sweep} k=8: not bitwise repeatable")
+                worst = 0.0
+                for j in range(8):
+                    x1 = ts.tri_sweep(S, b8[:, j].contiguous())
+                    err = float((X[:, j] - x1).abs().max())
+                    tol = tol_rel * float(x1.abs().max())
+                    check(err <= tol, f"{tag} {sweep} k=8 column {j}: "
+                                      f"{err:.3e} > {tol:.3e} of k=1")
+                    worst = max(worst, err)
+                k8_errs[sweep] = worst
             state.check()
-            check(int(state.f.ctl[0]) == int(state.b.ctl[0]) == 0,
-                  f"{tag}: claim counter not back at 0")
             x = sc.apply_tri(state, b).double().cpu().numpy()
             apply_err = float(np.abs(x - host_x).max() / np.abs(host_x).max())
             check(apply_err <= (1e-12 if f64 else 1e-4),
                   f"{tag}: apply vs host f64 tri_solve {apply_err:.3e}")
             ms_f = median_ms(lambda: ts.tri_sweep(state.f, b))
             ms_b = median_ms(lambda: ts.tri_sweep(state.b, b))
+            ms_f8 = median_ms(lambda: ts.tri_sweep(state.f, b8))
             ms_apply = median_ms(lambda: sc.apply_tri(state, b))
             plain_ms = median_ms(lambda: ts.tri_sweep_plain(state.f, b),
                                  reps=5)
-            dev_ms = profiled_kernel_ms(ts.tri_sweep, (state.f, b),
-                                        "tri_sweep_kernel", launches=20)
+            dev_ms, ev_f = profiled_sweep_ms(ts.tri_sweep, (state.f, b),
+                                             len(state.f.plan))
+            dev_b_ms, ev_b = profiled_sweep_ms(ts.tri_sweep, (state.b, b),
+                                               len(state.b.plan))
             vb = 8 if f64 else 4
             nbytes = nnz * (vb + 4) + 3 * n * vb
             b_ms, b_by = bound(nbytes, 2 * nnz + 2 * n, "f64" if f64 else "f32")
             lib_f, why_f = spsv_ms(cp, ci, cx, b, lower=True)
             lib_b, why_b = spsv_ms(cp, ci, cx, b, lower=False)
+            launches = (len(state.f.plan), len(state.b.plan))
             print(f"kernel {tag}: max_abs_err f={errs['f']:.3e} b="
-                  f"{errs['b']:.3e} (apply vs host f64 {apply_err:.3e}) "
-                  f"upload_s={upload_s:.2f}; wrapper forward {ms_f:.4f} ms "
+                  f"{errs['b']:.3e}, k=8 vs k=1 f={k8_errs['f']:.3e} b="
+                  f"{k8_errs['b']:.3e} (apply vs host f64 {apply_err:.3e}) "
+                  f"upload_s={upload_s:.2f}; launches per sweep {launches}; "
+                  f"wrapper forward {ms_f:.4f} ms "
                   f"({ms_f * 1e3 / meta['nlev_f']:.3f} us per level), "
                   f"backward {ms_b:.4f} ms "
-                  f"({ms_b * 1e3 / meta['nlev_b']:.3f} us per level), apply "
-                  f"{ms_apply:.4f} ms; device (profiler) forward "
-                  f"{_fmt(dev_ms)} ms; plain forward {plain_ms:.4f} ms")
+                  f"({ms_b * 1e3 / meta['nlev_b']:.3f} us per level), "
+                  f"forward k=8 {ms_f8:.4f} ms, apply {ms_apply:.4f} ms; "
+                  f"device (profiler) forward {_fmt(dev_ms)} ms, backward "
+                  f"{_fmt(dev_b_ms)} ms ({ev_f} and {ev_b} kernel events "
+                  f"for {20 * launches[0]} and {20 * launches[1]} "
+                  f"launches); plain forward {plain_ms:.4f} ms")
             print(f"  bound {b_ms:.4f} ms ({b_by}, {nbytes} B); cuSPARSE "
                   f"SpSV forward {_fmt(lib_f)} ms{' ' + why_f if why_f else ''}"
                   f", backward {_fmt(lib_b)} ms{' ' + why_b if why_b else ''}"
@@ -2061,14 +2213,46 @@ def tri_sweep_phase(matrices) -> dict:
             times = dict(max_abs_err=max(errs.values()), ms=ms_f,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_f, shape=f"{label} forward sweep",
-                         backward_ms=ms_b, apply_ms=ms_apply,
+                         backward_ms=ms_b, apply_ms=ms_apply, k8_ms=ms_f8,
+                         k8_max_abs_err=max(k8_errs.values()),
+                         launches_per_sweep=launches,
                          device_ms_profiler=dev_ms,
+                         device_backward_ms_profiler=dev_b_ms,
                          nlev=(meta["nlev_f"], meta["nlev_b"]),
                          us_per_level=ms_f * 1e3 / meta["nlev_f"],
                          library_backward_ms=lib_b,
                          host_tri_solve_ms=host_ms)
             if lib_f is None:
                 times["library_note"] = why_f
+            del state
+            if forced is not None and forced[0] == dtype:
+                cap = forced[1]
+                host_cap, _ = sc.pack_tri_host(cp, ci, cx, n, capacity=cap)
+                state = sc.upload_tri(host_cap, dtype, dev, plain=True)
+                del host_cap
+                for sweep, S in (("f", state.f), ("b", state.b)):
+                    kinds = set(int(k) for k in S.plan[:, 0])
+                    check(ts.WIDE in kinds and kinds & {ts.RUN, ts.PAIR},
+                          f"{tag} capacity {cap} {sweep}: plan kinds {kinds}")
+                    ts.reset_launches()
+                    x_w = ts.tri_sweep(S, b)
+                    torch.cuda.synchronize()
+                    check(ts.LAUNCHES[name] == len(S.plan),
+                          f"{tag} capacity {cap}: launches")
+                    check(torch.equal(ts.tri_sweep(S, b), x_w),
+                          f"{tag} capacity {cap}: not bitwise repeatable")
+                    err = held(f"{tag} capacity {cap} {sweep}", S, b, x_w,
+                               tol_rel)
+                ms_w = median_ms(lambda: ts.tri_sweep(state.f, b))
+                print(f"  {tag} forced capacity {cap}: forward "
+                      f"{_plan_summary(state.f)}, backward "
+                      f"{_plan_summary(state.b)}; max_abs_err {err:.3e}; "
+                      f"wrapper forward {ms_w:.4f} ms")
+                times["forced_wide"] = dict(
+                    capacity=cap, ms=ms_w, max_abs_err=err,
+                    launches_per_sweep=(len(state.f.plan),
+                                        len(state.b.plan)))
+                del state
             entry = results.setdefault(name, {"max_abs_err": 0.0})
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        times["max_abs_err"])
@@ -2076,8 +2260,11 @@ def tri_sweep_phase(matrices) -> dict:
                 entry.update(times)
             else:
                 entry[key] = times
-            del state, b
+            del b, b8
         torch.cuda.empty_cache()
+    floor = tri_chain_floor(dev)
+    results["tri_sweep_f32"]["chain_floor"] = floor["f32"]
+    results["tri_sweep_f64"]["chain_floor"] = floor["f64"]
     return results
 
 
@@ -2722,7 +2909,12 @@ def main() -> int:
                                              "amg_level1_a",
                                              "sell_same_operator",
                                              "backward_ms", "apply_ms",
-                                             "device_ms_profiler", "nlev",
+                                             "k8_ms", "k8_max_abs_err",
+                                             "launches_per_sweep",
+                                             "device_ms_profiler",
+                                             "device_backward_ms_profiler",
+                                             "forced_wide", "chain_floor",
+                                             "nlev",
                                              "us_per_level",
                                              "library_backward_ms",
                                              "library_note",

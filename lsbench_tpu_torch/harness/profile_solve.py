@@ -17,7 +17,8 @@ chip_smoke.py drives through the CLI):
 3. run one solve under `torch.profiler` and export its Chrome trace;
 4. from the trace's device events (categories `kernel`, `gpu_memcpy`,
    `gpu_memset`) take `busy_s`, the length of the union of their
-   intervals, and the device time and launch count per kernel name.
+   intervals, and the device time (the union of its events' intervals)
+   and launch count per kernel name.
 
 `idle_share = 1 - busy_s / wall_s`. The profiler slows the host (it records
 every launch), not the device, so the busy time of the profiled solve is
@@ -67,7 +68,8 @@ GROUPS = (
     ("K2 f64acc", ("spmv_bsr_f64acc_kernel",)),
     ("K1/K5 spmv", ("spmv_bsr_f32_kernel", "spmv_bsr_classed_f32_kernel")),
     ("K4 well", ("spmv_well",)),
-    ("tri sweep", ("tri_sweep_kernel",)),
+    ("tri sweep", ("tri_sweep_run_kernel", "tri_sweep_pair_kernel",
+                   "tri_sweep_wide_kernel")),
     ("eigh", ("syev", "stedc", "sytrd", "steqr", "eigh")),
     ("QR", ("geqr", "orgqr", "ormqr", "larf", "householder")),
     ("cuSOLVER other", ("cusolver", "potrf", "trsm", "trsv", "lacpy",
@@ -145,20 +147,22 @@ def profile_matrix(label: str, A, device, precond: str = "jacobi",
         raise RuntimeError(f"{label}: the profiler trace holds no device "
                            "events; time with CUDA events instead")
 
-    by_name: dict[str, dict] = {}
+    # Device time of a kernel name or group: the union of its events'
+    # intervals, so that a kernel launched programmatically (the sweeps),
+    # which may start while the one before it runs and wait for it, is not
+    # counted twice.
+    by_name: dict[str, list] = {}
     for e in events:
-        d = by_name.setdefault(e["name"], {"device_ms": 0.0, "count": 0,
-                                           "cat": e["cat"]})
-        d["device_ms"] += e["dur"] / 1e3
-        d["count"] += 1
-    table = sorted(({"name": k, **v} for k, v in by_name.items()),
+        by_name.setdefault(e["name"], []).append(e)
+    table = sorted(({"name": k, "device_ms": _union_us(v) / 1e3,
+                     "count": len(v), "cat": v[0]["cat"]}
+                    for k, v in by_name.items()),
                    key=lambda d: -d["device_ms"])
-    groups: dict[str, dict] = {}
-    for d in table:
-        g = groups.setdefault(kernel_group(d["name"], d["cat"]),
-                              {"device_ms": 0.0, "count": 0})
-        g["device_ms"] += d["device_ms"]
-        g["count"] += d["count"]
+    by_group: dict[str, list] = {}
+    for e in events:
+        by_group.setdefault(kernel_group(e["name"], e["cat"]), []).append(e)
+    groups = {g: {"device_ms": _union_us(v) / 1e3, "count": len(v)}
+              for g, v in by_group.items()}
     busy_s = _union_us(events) / 1e6
     out = {
         "matrix": label, "solver": solver_cls.__name__, "precond": precond,

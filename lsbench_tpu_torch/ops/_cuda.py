@@ -42,8 +42,8 @@ SOURCES = {
     "sell_spmv": (("lsb_spmv_sell_f32", 5, 1),
                   ("lsb_spmv_sell_f64", 5, 1)),
     "sell_spmm": (("lsb_spmm_sell_f32", 5, 2),),
-    "tri_sweep": (("lsb_tri_sweep_f32", 9, 2),
-                  ("lsb_tri_sweep_f64", 9, 2)),
+    "tri_sweep": (("lsb_tri_sweep_f32", 16, 3),
+                  ("lsb_tri_sweep_f64", 16, 3)),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

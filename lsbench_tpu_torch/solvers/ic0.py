@@ -13,8 +13,9 @@ workload. The split mirrors the sparse direct path
   retry on breakdown (IC(0) of an SPD matrix can fail; A + αD succeeds for
   α large enough);
 - device apply: z = (L Lᵀ)⁻¹ r by the level schedule's `pack_tri` /
-  `apply_tri`, one launch of the triangular-sweep kernel per sweep on the
-  card (`ops/tri_sweep.py`), the plain sweep on the CPU.
+  `apply_tri`, the triangular-sweep kernels on the card (one launch per
+  segment of each sweep's plan, `ops/tri_sweep.py`), the plain sweep on
+  the CPU.
 """
 
 from __future__ import annotations
@@ -115,8 +116,8 @@ def _ic0_numeric(n, offs, cols, vals, cp, ci, a_low, diag0, alpha):
 def ic0_precond(A: CsrMatrix, dtype, device, shift: float = 0.0, **_):
     """(state, apply) for the preconditioner contract: z = (L Lᵀ)⁻¹ r with
     L = IC(0)(A), both sweeps on `device` in `dtype`. `state` is the
-    `TriPack`; its `check()` reads the kernel's error word (once per
-    solve, `preconditioners.check`)."""
+    `TriPack`; the solvers call its `check()` once per solve
+    (`preconditioners.check`)."""
     cp, ci, cx = ic0_factor(A, shift=shift)
     state, _ = pack_tri(cp, ci, cx, A.nrows, dtype, device)
 

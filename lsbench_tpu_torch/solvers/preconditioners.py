@@ -5,8 +5,8 @@ A preconditioner is `(state, apply)` with `apply(state, r) -> z`: `none`
 (identity), `jacobi`, `block_jacobi`, `chebyshev`, one AMG V-cycle (`amg`,
 `amg_classical`, `solvers/amg.py`) and IC(0) (`ic0`, `solvers/ic0.py`),
 the JAX package's whole set. A solver calls `check(state)` once per
-solve: it raises if the preconditioner's kernel reported a fault on the
-card (IC(0)'s triangular sweeps).
+solve: it raises if the preconditioner's device work reported a fault
+(a state with a `check` method; IC(0)'s triangular sweeps keep none).
 """
 
 from __future__ import annotations
@@ -138,9 +138,9 @@ NOT_PORTED = ()
 
 
 def check(state) -> None:
-    """Raise if the preconditioner's device work reported a fault: a state
-    with a `check` method (IC(0)'s `TriPack`) reads its kernel's error word,
-    one device sync. Solvers call this once per solve."""
+    """Raise if the preconditioner's device work reported a fault: calls
+    the `check` method of a state that has one (IC(0)'s `TriPack`, whose
+    sweeps have nothing to report). Solvers call this once per solve."""
     if hasattr(state, "check"):
         state.check()
 

@@ -25,9 +25,10 @@ The reference's default backend factors on the host CPU (CHOLMOD with
     in f32 and the f64 refinement residual is `spmv_sell_f64` (the JAX
     package's TPU branch, where `spmv_bsr_df64` had that place).
   * "level": the level-scheduled sweeps, also `ic0.py`'s apply. Each
-    sweep is one launch of the triangular-sweep kernel
-    (`ops/tri_sweep.py`, `csrc/tri_sweep.cu`) over the rows in dependency
-    level order, where the JAX package scans the levels (`_sweep`); fp64
+    sweep runs the triangular-sweep kernels (`ops/tri_sweep.py`,
+    `csrc/tri_sweep.cu`) over the rows in dependency level order, one
+    launch per segment of its plan (a run of narrow levels on one CTA, or
+    one wide level), where the JAX package scans the levels (`_sweep`); fp64
     sweeps in f32 with the `spmv_sell_f64` refinement residual, as
     "block" does.
 
@@ -289,18 +290,28 @@ def _pack_levels(n, row_offs, row_cols, row_vals, diag, level):
 
 
 def _kernel_rows(n, row_offs, row_cols, row_vals, diag, level):
-    """The same sweep in the triangular-sweep kernel's layout
-    (`ops/tri_sweep.py::TriSweep`): rows in the segments' level order
-    (stable: ascending inside a level), their entries as CSR in that order,
-    `dinv` by position. No padding."""
+    """The same sweep in the triangular-sweep kernels' layout
+    (`ops/tri_sweep.py::TriSweep`), in position space: rows in the
+    segments' level order (stable: ascending inside a level) as `perm`,
+    their entries as CSR in that order with each column turned into the
+    position of the row it names (ascending in each row), `dinv` by
+    position, and `lvl_offs`, the positions of each level. No padding."""
     order = np.argsort(level, kind="stable")
+    pos = np.empty(n, dtype=np.int64)
+    pos[order] = np.arange(n)
     lens = np.diff(row_offs)[order]
     offs = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(lens, out=offs[1:])
     src = np.repeat(row_offs[order] - offs[:-1], lens) + np.arange(offs[-1])
+    cols = pos[row_cols[src]]
+    src = src[np.lexsort((cols, np.repeat(np.arange(n), lens)))]
+    nlev = int(level.max()) + 1 if n else 1
+    lvl_offs = np.zeros(nlev + 1, dtype=np.int64)
+    np.cumsum(np.bincount(level, minlength=nlev), out=lvl_offs[1:])
     return {"perm": order.astype(np.int32), "offs": offs,
-            "cols": row_cols[src].astype(np.int32), "vals": row_vals[src],
-            "dinv": 1.0 / diag[order]}
+            "cols": pos[row_cols[src]].astype(np.int32),
+            "vals": row_vals[src], "dinv": 1.0 / diag[order],
+            "lvl_offs": lvl_offs}
 
 
 def _backward_rows(r, c, v, n):
@@ -337,17 +348,21 @@ def _sweep_rows(cp, ci, cx, n):
     return (roffs, c_s, v_s, lev_f), _backward_rows(r, c, v, n), diag
 
 
-def pack_tri_host(cp, ci, cx, n):
+def pack_tri_host(cp, ci, cx, n, capacity=None):
     """The host half of `pack_tri`: for the forward ("f") and backward
     ("b") sweeps, (flat segment arrays, [(L, T, R)], kernel layout, level
-    count), and the JAX package's `meta`."""
+    count), and the JAX package's `meta`. The kernel layout carries its
+    launch plan (`plan`, `tri_sweep.plan_segments` at `capacity`, by
+    default the run kernel's `RUN_THREADS` rows)."""
+    capacity = tri_sweep.RUN_THREADS if capacity is None else capacity
     fwd, bwd, diag = _sweep_rows(cp, ci, cx, n)
     host, pads = {}, 0
     for key, (offs, cols, vals, lev) in (("f", fwd), ("b", bwd)):
         flat, seg_R, pad = _pack_levels(n, offs, cols, vals, diag, lev)
-        host[key] = (flat, seg_R,
-                     _kernel_rows(n, offs, cols, vals, diag, lev),
-                     int(lev.max()) + 1 if n else 1)
+        k = _kernel_rows(n, offs, cols, vals, diag, lev)
+        k["plan"] = tri_sweep.plan_segments(k["lvl_offs"], k["offs"],
+                                            k["cols"], capacity)
+        host[key] = (flat, seg_R, k, int(lev.max()) + 1 if n else 1)
         pads += pad
     meta = {"nlev_f": host["f"][3], "nlev_b": host["b"][3],
             "rs_f": host["f"][1], "rs_b": host["b"][1],
@@ -382,23 +397,23 @@ class TriPack(NamedTuple):
     b: TriSweep
 
     def check(self) -> None:
-        """Raise if a kernel launch on either sweep reported a fault (one
-        device sync): once per solve."""
+        """The solvers' once-per-solve check of both sweeps
+        (`tri_sweep.check`)."""
         tri_sweep.check(self.f, self.b)
 
 
 def upload_tri(host, dtype, device, plain=None) -> TriPack:
     """Both sweeps of `pack_tri_host`'s arrays on `device` in `dtype`: the
-    kernel's layout and, with `plain` (the default on the CPU, where the
-    plain version runs), the padded level segments."""
+    kernels' layout with its launch plan and, with `plain` (the default on
+    the CPU, where the plain version runs), the padded level segments."""
     plain = torch.device(device).type == "cpu" if plain is None else plain
     sweeps = []
     for key in ("f", "b"):
         flat, seg_R, k, nlev = host[key]
         levels = _plain_levels(flat, seg_R, dtype, device) if plain else None
-        sweeps.append(TriSweep.build(k["perm"], k["offs"], k["cols"],
-                                     k["vals"], k["dinv"], nlev, dtype,
-                                     device, levels))
+        sweeps.append(TriSweep.build(
+            k["perm"], k["offs"], k["cols"], k["vals"], k["dinv"],
+            k["lvl_offs"], dtype, device, levels, plan=k["plan"]))
     return TriPack(*sweeps)
 
 
@@ -714,9 +729,10 @@ class SparseCholeskySolver(Solver):
     def _device_solve(self, b2: torch.Tensor) -> torch.Tensor:
         """A device schedule with refinement (`refine_columns`) until
         every column meets rtol or stops improving; b2 (n, k) on the
-        device. The level sweeps' error word is read once, at the end. fp32_ir sweeps the f32 residual scaled to unit norm from
-        x = 0; otherwise the first sweep gives x and the refinement sweeps
-        run in the solve's dtype."""
+        device. The level sweeps' `check` runs once, at the end. fp32_ir
+        sweeps the f32 residual scaled to unit norm from x = 0; otherwise
+        the first sweep gives x and the refinement sweeps run in the
+        solve's dtype."""
         bp = b2 if self._perm is None else b2[self._perm]
         bp = bp.to(torch.float64 if self._ir else self.dtype)
         residual = column_residual(self._mv, bp)
