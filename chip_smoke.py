@@ -190,7 +190,27 @@ Phases, each of which raises (exit code 1) on failure:
    kernels on an x_ext assembled by hand, against their plain versions
    (1e-5, 1e-13, 1e-5 of max|y|) and, rows concatenated, the host product
    (f64 within 1e-13, SpMM within 2e-5); `--devices` one more than the
-   cards exits 1 with "requested N devices, have M".
+   cards exits 1 with "requested N devices, have M". Since slice 14 also
+   the AMG family over the ranks and the 2-D grid, each an NCCL group of
+   one on poisson_2d(512): `cg_ir --precond amg_classical --ordering rcm
+   --rtol 1e-10 --devices 1` (true relres ≤ 1e-10, `fp64(fp32_ir_auto)`,
+   level 0 "bsr": SELL f32 and f64; its iterations, passes and solve_s
+   printed again beside the single-device run of phase 5), `hypre
+   --devices 1` (2 f64 cycles: relres finite and below 1, SELL f64),
+   `paralmond --devices 1` (one K-cycle, SELL f64), `cg_ir --devices 1
+   --mesh 1x1` (≤ 1e-10, within 5% of the `--devices 1` iterations, SELL
+   f32 and f64), `cg --nrhs 8 --devices 1 --mesh 1x1` (worst column ≤
+   1e-10, SELL SpMM and f64) and `cg --precond amg --rtol 1e-8 --devices 1
+   --mesh 1x1` (converged by the host true residual; the 2-D hierarchy's
+   gather ELL launches no kernel), none launching a BSR kernel; then, in
+   one process, each rank's gathered-frame block of a 2 x 2 grid of RCM
+   poisson_2d(512) and each D = 4 rank's block of every P and R of its
+   `amg_classical` hierarchy through the SELL f32, f64 and k = 8 SpMM
+   kernels against their plain versions (1e-5, 1e-13, 1e-5 of max|y|),
+   the grid's partials summed and scattered on the host (f32 within 1e-5,
+   f64 within 1e-12 of the host product) and the transfers' rank rows
+   concatenated (f64 within 1e-12); `--mesh 2x2 --devices 1` exits 1 with
+   the JAX CLI's message.
 
 Each path's launch counts are read from counters set to 0 just before it.
 Beside each kernel's times the record carries the bound of its function
@@ -266,6 +286,12 @@ PATHS = ("cg_ir --devices 1 poisson_2d(512)",
          "ginkgo --devices 1 random_spd(6408,23)",
          "gmres --devices 1 random_spd(6408,23)",
          "cg --devices 1 random_spd(6408,23)",
+         "cg_ir amg_classical --devices 1 poisson_2d(512)",
+         "hypre --devices 1 poisson_2d(512)",
+         "paralmond --devices 1 poisson_2d(512)",
+         "cg_ir --devices 1 --mesh 1x1 poisson_2d(512)",
+         "cg --nrhs 8 --devices 1 --mesh 1x1 poisson_2d(512)",
+         "cg --precond amg --devices 1 --mesh 1x1 poisson_2d(512)",
          "cg_ir --roofline poisson_2d(512) + random_spd(6408,23)",
          "cg_ir amg_classical poisson_2d(512)", "hypre poisson_2d(512)",
          "hypre poisson_2d(128)", "cg --nrhs 8 poisson_2d(512)",
@@ -303,6 +329,8 @@ AMG_CG_IR = ["--solver", "cg_ir", "--precond", "amg_classical", "--ordering",
              "--json"]
 # Records one phase leaves for a later one (the cache's miss).
 HARNESS = {}
+# The distributed paths' records, by label, for later comparisons.
+DIST_RECORDS = {}
 # H100 SXM data sheet: HBM3 rate, and peak rates outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
@@ -1214,6 +1242,12 @@ def amg_paths_phase(tmp: str, A512, A128, amg_cache: str) -> list[dict]:
           f"{rec['first_call_s']:.3f} cli_wall_s={wall:.2f} launches={ran} "
           f"phase_s={time.perf_counter() - t0:.2f}")
     counts.append(ran)
+    dist = DIST_RECORDS.get("cg_ir amg_classical")
+    if dist is not None:
+        print(f"amg-cg-ir poisson_2d(512): --devices 1 iters={dist['iters']} "
+              f"passes={dist['refine_passes']} solve_s={dist['solve_s']:.4f}"
+              f" | single-device iters={rec['iters']} passes="
+              f"{rec['refine_passes']} solve_s={rec['solve_s']:.4f}")
 
     t0 = time.perf_counter()
     hypre = ["--solver", "hypre", "--trials", "2", "--warmups", "1", "--json"]
@@ -2617,8 +2651,10 @@ def distributed_paths_phase(tmp: str, matrices, card: str) -> list[dict]:
     poisson_2d(512) (each rank's SELL f32, f64 and k = 8 SpMM kernels on an
     x_ext assembled by hand, against their plain versions and, rows
     concatenated, the host product), and `--devices` one more than the
-    cards exiting 1 with the JAX package's message. Returns each path's
-    launch counts."""
+    cards exiting 1 with the JAX package's message; the AMG family and the
+    2-D grid (`amg_and_grid_paths`, `grid_operator_check`,
+    `amg_transfer_check`) and `--mesh 2x2 --devices 1` exiting 1. Returns
+    each path's launch counts."""
     import torch
     import torch.distributed as dist
 
@@ -2671,6 +2707,7 @@ def distributed_paths_phase(tmp: str, matrices, card: str) -> list[dict]:
                               f"launched {ran}")
         check(all(ran[k] == 0 for k in ran if k.startswith("bsr")),
               f"{label} --devices 1: a BSR kernel launched {ran}")
+        DIST_RECORDS[label] = rec
         # The single-device run of the same command, right after it.
         one, _, one_wall = cli_path(f"{label} {matrix}", files[matrix], argv)
         print(f"distributed path {label} --devices 1 {matrix}: "
@@ -2684,6 +2721,8 @@ def distributed_paths_phase(tmp: str, matrices, card: str) -> list[dict]:
               f"{card} | launches={ran} "
               f"phase_s={time.perf_counter() - t0:.2f}")
         counts.append(ran)
+
+    counts += amg_and_grid_paths(files[p512], card, DIST_RECORDS["cg_ir"])
 
     # The distributed x against the single-device x, and the cost of one
     # fused all_reduce on NCCL at world size 1 (not paths).
@@ -2778,6 +2817,9 @@ def distributed_paths_phase(tmp: str, matrices, card: str) -> list[dict]:
           f"{g64:.3e}, spmm {gmm:.3e} (relative to max|y|); "
           f"{time.perf_counter() - t0:.2f} s")
 
+    grid_operator_check(Ar)
+    amg_transfer_check(Ar)
+
     # More ranks than cards: refused before any rank starts.
     have = torch.cuda.device_count()
     err = io.StringIO()
@@ -2789,7 +2831,260 @@ def distributed_paths_phase(tmp: str, matrices, card: str) -> list[dict]:
     check(rc == 1 and msg in err.getvalue() and not out.getvalue(),
           f"--devices {have + 1}: rc {rc}, stderr {err.getvalue()!r}")
     print(f"--devices {have + 1} on {have} card(s): exit 1, \"{msg}\"")
+    # A grid whose size is not --devices: the JAX CLI's refusal.
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err), \
+            contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = cli_main(["--matrix", files[rspd], "--solver", "cg_ir",
+                       "--devices", "1", "--mesh", "2x2"])
+    msg = "--mesh 2x2 needs 4 devices but --devices=1"
+    check(rc == 1 and msg in err.getvalue() and not out.getvalue(),
+          f"--mesh 2x2 --devices 1: rc {rc}, stderr {err.getvalue()!r}")
+    print(f"--mesh 2x2 --devices 1: exit 1, \"{msg}\"")
     return counts
+
+
+def amg_and_grid_paths(f512: str, card: str, dist_cg_ir: dict) -> list[dict]:
+    """The AMG family over the ranks (`parallel/dist_amg.py`) and the 2-D
+    grid (`parallel/dist2d.py`, `dist_amg2d.py`, the 2-D IR classes), each
+    through the CLI as an NCCL group of one: `--devices 1`, and `--mesh
+    1x1` (the grid's row and column groups, NCCL groups of one too), on
+    poisson_2d(512). Returns each path's launch counts."""
+    quick = ["--trials", "1", "--warmups", "0", "--json"]
+    runs = (  # (label, argv, what must hold, kernels that must run)
+        ("cg_ir amg_classical", [*AMG_CG_IR, "--devices", "1"],
+         "ir", ("sell_f32", "sell_f64")),
+        ("hypre", ["--solver", "hypre", "--trials", "2", "--warmups", "1",
+                   "--json", "--devices", "1"], "fixed", ("sell_f64",)),
+        ("paralmond", ["--solver", "paralmond", "--trials", "1",
+                       "--warmups", "1", "--json", "--devices", "1"],
+         "fixed", ("sell_f64",)),
+        ("cg_ir --mesh 1x1", ["--solver", "cg_ir", "--ordering", "rcm",
+                              "--rtol", "1e-10", *quick, "--devices", "1",
+                              "--mesh", "1x1"], "ir", ("sell_f32", "sell_f64")),
+        ("cg --nrhs 8 --mesh 1x1", ["--solver", "cg", "--nrhs", "8",
+                                    "--ordering", "rcm", "--rtol", "1e-10",
+                                    *quick, "--devices", "1", "--mesh",
+                                    "1x1"], "ir",
+         ("sell_mm_f32", "sell_f64")),
+        ("cg --precond amg --mesh 1x1", ["--solver", "cg", "--precond",
+                                         "amg", "--rtol", "1e-8", *quick,
+                                         "--devices", "1", "--mesh", "1x1"],
+         "converge", ()))
+    counts = []
+    for label, argv, kind, expect in runs:
+        t0 = time.perf_counter()
+        rec, ran, wall = cli_path(f"{label} --devices 1 poisson_2d(512)",
+                                  f512, argv)
+        what = f"{label} --devices 1"
+        if kind == "ir":
+            check(rec["converged"] is True and rec["true_relres"] <= 1e-10,
+                  f"{what}: true_relres {rec['true_relres']:.3e} > 1e-10")
+        elif kind == "converge":
+            check(rec["converged"] is True
+                  and rec["true_relres"] <= 1e-8,
+                  f"{what}: not converged, true_relres "
+                  f"{rec['true_relres']:.3e}")
+        else:  # the fixed-cycle protocol: the residual is data
+            check(bool(np.isfinite(rec["relres"])) and rec["relres"] < 1
+                  and rec["iters"] == (2 if label == "hypre" else 1),
+                  f"{what}: relres {rec['relres']} iters {rec['iters']}")
+        if label == "cg_ir amg_classical":
+            check(rec["precision"] == "fp64(fp32_ir_auto)"
+                  and rec["local_spmv"] == "bsr",
+                  f"{what}: precision {rec['precision']} local_spmv "
+                  f"{rec['local_spmv']}")
+            DIST_RECORDS[label] = rec
+        if label == "cg_ir --mesh 1x1":
+            base = dist_cg_ir["iters"]
+            check(abs(rec["iters"] - base) <= 0.05 * base,
+                  f"{what}: {rec['iters']} iterations, --devices 1 (1-D) "
+                  f"{base}")
+        if "--mesh" in label:
+            check(rec["mesh"] == [1, 1], f"{what}: mesh {rec.get('mesh')}")
+        for k in expect:
+            check(ran[k] > 0, f"{what}: kernel {k} never launched {ran}")
+        check(all(ran[k] == 0 for k in ran if k.startswith("bsr")),
+              f"{what}: a BSR kernel launched {ran}")
+        print(f"distributed path {what} poisson_2d(512): "
+              f"iters={rec['iters']} passes={rec.get('refine_passes')} "
+              f"levels={rec.get('levels')} local_spmv={rec['local_spmv']} "
+              f"relres={rec['relres']:.3e} true_relres="
+              f"{rec['true_relres']:.3e} setup_s={rec['setup_s']:.3f} "
+              f"solve_s={rec['solve_s']:.4f} first_call_s="
+              f"{rec['first_call_s']:.3f} cli_wall_s={wall:.2f} | {card} | "
+              f"launches={ran} phase_s={time.perf_counter() - t0:.2f}")
+        counts.append(ran)
+    return counts
+
+
+def grid_operator_check(Ar) -> None:
+    """Each rank's block of a 2 x 2 grid of RCM poisson_2d(512), in its
+    gathered frame, through the SELL f32, f64 and k = 8 SpMM kernels on an
+    x assembled by hand, against their plain versions; the four partials
+    summed and scattered on the host against the host product (one
+    process, not a path)."""
+    import torch
+
+    from lsbench_tpu_torch.matrix.sell import SellMatrix
+    from lsbench_tpu_torch.ops import spmv_sell as ss
+    from lsbench_tpu_torch.parallel.dist2d import (build_2d_plan,
+                                                   local_block_2d)
+    t0 = time.perf_counter()
+    pr = pc = 2
+    plan = build_2d_plan(Ar, pr, pc, torch.float32)
+    cs, rloc, dev = plan.csize, plan.rloc, torch.device("cuda")
+    rng = np.random.default_rng(14)
+    x = np.zeros(plan.n_pad)
+    x[: Ar.nrows] = rng.standard_normal(Ar.nrows)
+    X = np.zeros((plan.n_pad, 8))
+    X[: Ar.nrows] = rng.standard_normal((Ar.nrows, 8))
+    y32, y64, Y = (np.zeros(plan.n_pad), np.zeros(plan.n_pad),
+                   np.zeros((plan.n_pad, 8)))
+    errs = {"f32": 0.0, "f64": 0.0, "mm": 0.0}
+    for i in range(pr):
+        for j in range(pc):
+            block = local_block_2d(Ar, pr, pc, i, j)
+            S = SellMatrix.from_csr(block, (torch.float32, torch.float64),
+                                    device=dev)
+            # Grid column j's chunks j, pc + j, ... in ascending grid row.
+            idx = np.concatenate([np.arange((a * pc + j) * cs,
+                                            (a * pc + j + 1) * cs)
+                                  for a in range(pr)])
+            xg = torch.as_tensor(x[idx], device=dev)
+            Xg = torch.as_tensor(X[idx], dtype=torch.float32, device=dev)
+            p32, p64 = ss.spmv_sell(S, xg.float()), ss.spmv_sell_f64(S, xg)
+            pmm = ss.spmm_sell(S, Xg)
+            torch.cuda.synchronize()
+            scale, mscale = float(p64.abs().max()), float(pmm.abs().max())
+            e32 = float((p32 - ss.spmv_sell_plain(S, xg.float())).abs().max())
+            e64 = float((p64 - ss.spmv_sell_f64_plain(S, xg)).abs().max())
+            emm = float((pmm - ss.spmm_sell_plain(S, Xg)).abs().max())
+            check(e32 <= 1e-5 * scale and e64 <= 1e-13 * scale
+                  and emm <= 1e-5 * mscale,
+                  f"grid rank ({i}, {j}): kernel vs plain f32 {e32:.3e} "
+                  f"f64 {e64:.3e} spmm {emm:.3e} (scale {scale:.3e})")
+            errs = {"f32": max(errs["f32"], e32), "f64": max(errs["f64"], e64),
+                    "mm": max(errs["mm"], emm)}
+            rows = slice(i * rloc, (i + 1) * rloc)  # row block i's partials
+            y32[rows] += p32.double().cpu().numpy()
+            y64[rows] += p64.cpu().numpy()
+            Y[rows] += pmm.double().cpu().numpy()
+            print(f"  grid rank ({i}, {j}) of 2x2: block {rloc} x "
+                  f"{plan.n_gath}, nnz {block.nnz}, stored {S.n_stored}")
+    host = Ar.matvec(x[: Ar.nrows])
+    host_X = np.stack([Ar.matvec(X[: Ar.nrows, c]) for c in range(8)], 1)
+    n = Ar.nrows
+    g32 = float(np.abs(y32[:n] - host).max() / np.abs(host).max())
+    g64 = float(np.abs(y64[:n] - host).max() / np.abs(host).max())
+    gmm = float(np.abs(Y[:n] - host_X).max() / np.abs(host_X).max())
+    check(g32 <= 1e-5 and g64 <= 1e-12 and gmm <= 1e-5,
+          f"2x2 partials summed vs host: f32 {g32:.3e} f64 {g64:.3e} "
+          f"spmm {gmm:.3e}")
+    print(f"2x2 grid operators, RCM poisson_2d(512): max |kernel - plain| "
+          f"f32 {errs['f32']:.3e} f64 {errs['f64']:.3e} spmm(k=8) "
+          f"{errs['mm']:.3e}; partials summed and scattered vs host: f32 "
+          f"{g32:.3e} f64 {g64:.3e} spmm {gmm:.3e} (relative to max|y|); "
+          f"{time.perf_counter() - t0:.2f} s")
+
+
+def amg_transfer_check(Ar) -> None:
+    """Each D = 4 rank's block of every P and R of the `amg_classical`
+    hierarchy of RCM poisson_2d(512) (as `DistributedAmgCgIr` lays them:
+    the halo frame, or global columns where a transfer gathers), through
+    the SELL f32, f64 and k = 8 SpMM kernels on an x assembled by hand,
+    against their plain versions; the ranks' rows concatenated against the
+    host product (one process, not a path)."""
+    import torch
+
+    from lsbench_tpu_torch.matrix.csr import CsrMatrix
+    from lsbench_tpu_torch.matrix.sell import SellMatrix
+    from lsbench_tpu_torch.ops import spmv_sell as ss
+    from lsbench_tpu_torch.parallel.dist_amg import _pad_size
+    from lsbench_tpu_torch.parallel.dist_spmv import (build_rect_halo_plan,
+                                                      local_rect_block)
+    from lsbench_tpu_torch.solvers.amg import (AmgOptions,
+                                               build_matrix_hierarchy)
+    t0 = time.perf_counter()
+    D, dev = 4, torch.device("cuda")
+    opts = AmgOptions(reorder_coarse=True, coarse_n=64,
+                      coarsening="classical", theta=0.5, interp="jacobi",
+                      interp_passes=3, interp_omega=0.5, pmax=8)
+    mats, Ac = build_matrix_hierarchy(Ar, opts, device="cpu")
+    t_h = time.perf_counter() - t0
+    nl = [_pad_size(s, D) // D
+          for s in [m["A"].nrows for m in mats] + [Ac.nrows]]
+    rng = np.random.default_rng(15)
+    errs = {"f32": 0.0, "f64": 0.0, "mm": 0.0, "host": 0.0}
+    blocks = 0
+    summary = []
+    for lvl, m in enumerate(mats):
+        for name, M, nr, nc in (("P", m["P"], nl[lvl], nl[lvl + 1]),
+                                ("R", m["R"], nl[lvl + 1], nl[lvl])):
+            plan = build_rect_halo_plan(M, D, nr, nc, torch.float64)
+            H = plan.halo
+            src = np.zeros(nc * D)
+            src[: M.ncols] = rng.standard_normal(M.ncols)
+            Xs = np.zeros((nc * D, 8))
+            Xs[: M.ncols] = rng.standard_normal((M.ncols, 8))
+            ys = []
+            for r in range(D):
+                if not plan.needs_all_gather:
+                    block, _ = local_rect_block(M, D, r, nr, nc)
+                    pad = np.zeros(nc * D + 2 * H)
+                    pad[H: H + nc * D] = src
+                    xr = pad[r * nc: r * nc + nc + 2 * H]
+                    padX = np.zeros((nc * D + 2 * H, 8))
+                    padX[H: H + nc * D] = Xs
+                    Xr = padX[r * nc: r * nc + nc + 2 * H]
+                else:  # the rank's rows with global column ids
+                    rr, cc, vv = M.to_coo()
+                    keep = (rr >= r * nr) & (rr < (r + 1) * nr)
+                    block = (CsrMatrix.from_coo(
+                        rr[keep] - r * nr, cc[keep], vv[keep], nrows=nr,
+                        ncols=nc * D) if keep.any() else CsrMatrix(
+                        nr, nc * D, np.zeros(nr + 1, np.int64),
+                        np.zeros(0, np.int32), np.zeros(0)))
+                    xr, Xr = src, Xs
+                if block.nnz == 0:  # a rank of padding rows only
+                    ys.append(np.zeros(nr))
+                    continue
+                S = SellMatrix.from_csr(block, (torch.float32, torch.float64),
+                                        device=dev)
+                x64 = torch.as_tensor(np.ascontiguousarray(xr), device=dev)
+                X32 = torch.as_tensor(np.ascontiguousarray(Xr),
+                                      dtype=torch.float32, device=dev)
+                p32, p64 = ss.spmv_sell(S, x64.float()), ss.spmv_sell_f64(S, x64)
+                pmm = ss.spmm_sell(S, X32)
+                torch.cuda.synchronize()
+                scale = float(p64.abs().max()) or 1.0
+                mscale = float(pmm.abs().max()) or 1.0
+                e32 = float((p32 - ss.spmv_sell_plain(S, x64.float())
+                             ).abs().max())
+                e64 = float((p64 - ss.spmv_sell_f64_plain(S, x64)).abs().max())
+                emm = float((pmm - ss.spmm_sell_plain(S, X32)).abs().max())
+                check(e32 <= 1e-5 * scale and e64 <= 1e-13 * scale
+                      and emm <= 1e-5 * mscale,
+                      f"level {lvl} {name} rank {r}: kernel vs plain f32 "
+                      f"{e32:.3e} f64 {e64:.3e} spmm {emm:.3e}")
+                errs = {"f32": max(errs["f32"], e32 / scale),
+                        "f64": max(errs["f64"], e64 / scale),
+                        "mm": max(errs["mm"], emm / mscale),
+                        "host": errs["host"]}
+                ys.append(p64.cpu().numpy())
+                blocks += 1
+            y = np.concatenate(ys)[: M.nrows]
+            host = M.matvec(src[: M.ncols])
+            g = float(np.abs(y - host).max() / (np.abs(host).max() or 1.0))
+            check(g <= 1e-12, f"level {lvl} {name}: ranks vs host {g:.3e}")
+            errs["host"] = max(errs["host"], g)
+            summary.append(f"{name}{lvl}:{'gather' if plan.needs_all_gather else H}")
+    print(f"D=4 AMG transfer blocks (amg_classical, RCM poisson_2d(512), "
+          f"{len(mats) + 1} levels, hierarchy {t_h:.2f} s): {blocks} rank "
+          f"blocks, halos {' '.join(summary)}; max |kernel - plain| / "
+          f"max|y|: f32 {errs['f32']:.3e} f64 {errs['f64']:.3e} spmm(k=8) "
+          f"{errs['mm']:.3e}; ranks concatenated vs host f64 "
+          f"{errs['host']:.3e}; {time.perf_counter() - t0:.2f} s")
 
 
 def main() -> int:

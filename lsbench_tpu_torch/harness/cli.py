@@ -17,7 +17,10 @@ PyTorch versions. `--cache`/`--cache-dir` turn on the setup cache
 NaN (`utils/debug.py`). `--devices N` runs the row-partitioned solver of
 the JAX CLI's mapping on N ranks (`parallel/`): this process is rank 0 and
 the others are spawned; on `--platform cuda` each rank takes one card and
-the group is NCCL, on `--platform cpu` the ranks are gloo processes.
+the group is NCCL, on `--platform cpu` the ranks are gloo processes;
+the AMG family (`amg`, `hypre`, `amgx`, `paralmond`, `--precond amg*`)
+runs the row-partitioned cycle (`parallel/dist_amg.py`). `--mesh RxC` lays
+the N ranks on an R × C grid (`parallel/dist2d.py`, `dist_amg2d.py`).
 Flags whose machinery is not ported yet exit 1 with a message; a layout,
 preconditioner or solve schedule that is not ported yet does too, and
 nothing else is substituted for it.
@@ -40,7 +43,7 @@ from lsbench_tpu_torch.harness.bench import (BenchRecord, reference_rhs,
                                              run_bench)
 from lsbench_tpu_torch.matrix.io import MatrixFormatError, read_matrix
 from lsbench_tpu_torch.parallel.mesh import (GROUP_TIMEOUT_S, check_devices,
-                                             make_row_mesh)
+                                             make_mesh_2d, make_row_mesh)
 from lsbench_tpu_torch.solvers.base import get_solver, list_solvers
 
 ORDERINGS = ("none", "rcm", "amd", "metis")
@@ -52,7 +55,7 @@ PRECISION_DTYPES = {
 }
 
 # Flags of the JAX CLI whose machinery is not ported yet (ROADMAP.md).
-_NOT_PORTED = (("mesh", "--mesh"), ("coordinator", "--coordinator"))
+_NOT_PORTED = (("coordinator", "--coordinator"),)
 # Solvers of the JAX package's registry that are not ported yet: refused,
 # where an unknown name would fall back to the default solver. None.
 _NOT_PORTED_SOLVERS = ()
@@ -114,8 +117,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--devices", type=int, default=None,
                    help="solve on N ranks over a block-row partition (one "
                         "card each on cuda, gloo processes on cpu)")
+    p.add_argument("--mesh", default=None, metavar="RxC",
+                   help="2-D rank grid for --devices runs, e.g. 2x2 "
+                        "(cg/cg_ir/bicgstab/ginkgo/gmres fp32_ir, --nrhs k "
+                        "block CG, --precond amg: all_gather over the grid "
+                        "column, reduce-scatter over the grid row)")
     # Accepted so reference command lines parse; not ported yet.
-    p.add_argument("--mesh", default=None, metavar="RxC", help="not yet ported")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
                    help="not yet ported")
     p.add_argument("--num-processes", type=int, default=None,
@@ -169,7 +176,7 @@ class _Prepared:
     ordering: str
     precision: str
     platform: str
-    dist: tuple | None  # (class, kwargs) of the distributed solver
+    dist: tuple | None  # (class, kwargs, grid or None): the distributed solver
 
 
 def _prepare(args) -> _Prepared | int:
@@ -310,24 +317,14 @@ def _prepare(args) -> _Prepared | int:
 
 
 def _make_distributed(solver_name: str, args, params):
-    """Map a solver name onto its row-partitioned implementation, as the
-    JAX CLI's `_make_distributed` does (lsbench_tpu/harness/cli.py:357-519):
-    (class, keyword arguments), or None with the refusal printed."""
-    from lsbench_tpu_torch.parallel.dist_bicgstab import DistributedBicgstab
-    from lsbench_tpu_torch.parallel.dist_block_cg import DistributedBlockCg
-    from lsbench_tpu_torch.parallel.dist_cg import DistributedCg
-    from lsbench_tpu_torch.parallel.dist_cg_ir import (DistributedBicgstabIr,
-                                                       DistributedCgIr,
-                                                       DistributedGmresIr)
-    from lsbench_tpu_torch.parallel.dist_gmres import DistributedGmres
+    """Map a solver name onto its partitioned implementation, as the JAX
+    CLI's `_make_distributed` does (lsbench_tpu/harness/cli.py:357-519):
+    (class, keyword arguments, grid shape (pr, pc) or None for the row
+    partition), or None with the refusal printed."""
+    from lsbench_tpu_torch.parallel import (dist_amg, dist_bicgstab,
+                                            dist_block_cg, dist_cg,
+                                            dist_cg_ir, dist_gmres)
 
-    if solver_name in ("amg", "hypre", "amgx", "paralmond") or (
-            solver_name in ("cg", "cg_ir")
-            and args.precond in ("amg", "amg_classical")):
-        print(f"--devices with AMG ('{solver_name}', --precond "
-              f"{args.precond}) is not yet ported to lsbench_tpu_torch "
-              "(see ROADMAP.md).", file=sys.stderr)
-        return None
     kw = {}
     if args.rtol is not None:
         kw["rtol"] = args.rtol
@@ -335,8 +332,91 @@ def _make_distributed(solver_name: str, args, params):
         kw["maxiter"] = args.maxiter
     dtype = params.get("dtype", "float64")
     mixed = dtype == "mixed"
+    classical = dict(coarsening="classical", theta=0.5, interp="jacobi",
+                     interp_passes=3, interp_omega=0.5, pmax=8)
+
+    if args.mesh:
+        if solver_name not in ("cg", "cg_ir", "bicgstab", "bicgstab_ir",
+                               "ginkgo", "gmres", "gmres_ir", "block_cg"):
+            print("--mesh RxC supports cg/gmres/bicgstab/ginkgo "
+                  "(point/none or amg preconditioning) and multi-RHS "
+                  "block_cg.", file=sys.stderr)
+            return None
+        from lsbench_tpu_torch.parallel import dist2d
+        try:
+            pr, pc = (int(t) for t in args.mesh.lower().split("x"))
+        except ValueError:
+            print(f"--mesh expects RxC (e.g. 2x4), got '{args.mesh}'",
+                  file=sys.stderr)
+            return None
+        if pr * pc != args.devices:
+            print(f"--mesh {args.mesh} needs {pr*pc} devices but "
+                  f"--devices={args.devices}", file=sys.stderr)
+            return None
+        grid = (pr, pc)
+        if "local_spmv" in params:
+            kw["local_spmv"] = params["local_spmv"]
+        kw["ordering"] = params.get("ordering", "none")
+        if solver_name == "block_cg":
+            kw.setdefault("rtol", 1e-10)
+            return (dist2d.DistributedBlockCg2d,
+                    dict(kw, nrhs=max(args.nrhs, 1)), grid)
+        if (solver_name in ("cg", "cg_ir")
+                and args.precond in ("amg", "amg_classical")):
+            from lsbench_tpu_torch.parallel.dist_amg2d import \
+                DistributedAmgCg2d
+            kw.pop("local_spmv", None)  # the hierarchy is ELL on 2-D only
+            if args.precond == "amg_classical":
+                kw.update(classical)
+            for k in ("coarsening", "theta", "interp", "interp_passes",
+                      "interp_omega", "pmax", "smoother", "degree",
+                      "pre_sweeps", "post_sweeps", "coarse_n"):
+                if k in params:
+                    kw[k] = params[k]
+            return DistributedAmgCg2d, dict(kw, dtype=dtype), grid
+        if mixed or solver_name.endswith("_ir"):
+            if solver_name in ("bicgstab", "bicgstab_ir", "ginkgo"):
+                kw.setdefault("rtol",
+                              1e-4 if solver_name == "ginkgo" else 1e-10)
+                return dist_cg_ir.DistributedBicgstabIr2d, kw, grid
+            kw.setdefault("rtol", 1e-10)
+            if solver_name in ("gmres", "gmres_ir"):
+                if "restart" in params:
+                    kw["restart"] = params["restart"]
+                return dist_cg_ir.DistributedGmresIr2d, kw, grid
+            return dist_cg_ir.DistributedCgIr2d, kw, grid
+        if solver_name in ("gmres", "gmres_ir"):
+            print("--mesh RxC gmres runs as fp32_ir (the f64 Arnoldi has "
+                  "no 2-D path; use --precision fp32_ir).", file=sys.stderr)
+            return None
+        if solver_name in ("bicgstab", "ginkgo"):
+            if solver_name == "ginkgo":
+                kw.setdefault("rtol", 1e-4)  # ginkgo.cpp:61
+            return dist2d.DistributedBicgstab2d, dict(kw, dtype=dtype), grid
+        return dist2d.DistributedCg2d, dict(kw, dtype=dtype), grid
+
+    if solver_name in ("amg", "hypre", "amgx", "paralmond"):
+        # The alias presets pass through, "cycles" and "cycle" included:
+        # `--solver hypre --devices N` builds the single-device alias's
+        # hierarchy, `paralmond` runs the K-cycle over the ranks.
+        for k in ("cycles", "cycle", "coarsening", "theta", "interp",
+                  "interp_passes", "interp_omega", "pmax", "smoother",
+                  "degree", "pre_sweeps", "post_sweeps"):
+            if k in params:
+                kw[k] = params[k]
+        return dist_amg.DistributedAmg, dict(kw, dtype=dtype), None
+    if solver_name in ("cg", "cg_ir") and args.precond in ("amg",
+                                                           "amg_classical"):
+        if args.precond == "amg_classical":
+            kw.update(classical)
+        if solver_name == "cg_ir" or mixed:
+            # f32 AMG-CG inner solves + f64 refinement: the 1e-10 AMG
+            # route over the ranks.
+            kw.setdefault("rtol", 1e-10)
+            return dist_amg.DistributedAmgCgIr, kw, None
+        return dist_amg.DistributedAmgCg, dict(kw, dtype=dtype), None
     kw["ordering"] = params.get("ordering", "none")
-    # Distributed --opt knobs.
+    # Distributed --opt knobs (the AMG branches forward their own).
     for k in ("local_spmv", "strategy", "inner_rtol", "max_refine",
               "row_align", "precond", "block_size", "restart"):
         if k in params:
@@ -345,25 +425,26 @@ def _make_distributed(solver_name: str, args, params):
         if solver_name == "ginkgo":
             kw.setdefault("rtol", 1e-4)  # ginkgo.cpp:61
         if mixed or solver_name == "bicgstab_ir":
-            return DistributedBicgstabIr, kw
-        return DistributedBicgstab, dict(kw, dtype=dtype)
+            return dist_cg_ir.DistributedBicgstabIr, kw, None
+        return dist_bicgstab.DistributedBicgstab, dict(kw, dtype=dtype), None
     if solver_name == "cg_ir" or (solver_name == "cg" and mixed):
         kw.setdefault("rtol", 1e-10)
-        return DistributedCgIr, kw
+        return dist_cg_ir.DistributedCgIr, kw, None
     if solver_name == "cg":
-        return DistributedCg, dict(kw, dtype=dtype)
+        return dist_cg.DistributedCg, dict(kw, dtype=dtype), None
     if solver_name in ("gmres", "gmres_ir"):
         if mixed or solver_name == "gmres_ir":
             kw.setdefault("rtol", 1e-10)
-            return DistributedGmresIr, kw
-        return DistributedGmres, dict(kw, dtype=dtype)
+            return dist_cg_ir.DistributedGmresIr, kw, None
+        return dist_gmres.DistributedGmres, dict(kw, dtype=dtype), None
     if solver_name == "block_cg":
         kw.setdefault("rtol", 1e-10)
-        return DistributedBlockCg, dict(kw, nrhs=max(args.nrhs, 1))
+        return (dist_block_cg.DistributedBlockCg,
+                dict(kw, nrhs=max(args.nrhs, 1)), None)
     print(f"solver '{solver_name}' has no distributed implementation "
           "(distributed: cg, cg_ir, block_cg, gmres, gmres_ir, bicgstab, "
-          "bicgstab_ir, ginkgo; all Krylov families accept --precision "
-          "fp32_ir; the AMG family is not ported yet).", file=sys.stderr)
+          "bicgstab_ir, ginkgo, amg, hypre, amgx, paralmond; all Krylov "
+          "families accept --precision fp32_ir).", file=sys.stderr)
     return None
 
 
@@ -378,7 +459,10 @@ def _run(args, prep: _Prepared, ranks: tuple | None = None) -> int:
     mesh = None
     if ranks is not None:
         n, rank, init_file = ranks
-        mesh = make_row_mesh(n, rank, init_file, prep.platform)
+        grid = prep.dist[2]
+        mesh = (make_row_mesh(n, rank, init_file, prep.platform)
+                if grid is None else
+                make_mesh_2d(*grid, rank, init_file, prep.platform))
         device = mesh.device
     else:
         device = torch.device(prep.platform)
@@ -398,7 +482,7 @@ def _bench_and_report(args, prep: _Prepared, device, mesh,
     t0 = time.perf_counter()
     try:
         if mesh is not None:
-            dist_cls, kw = prep.dist
+            dist_cls, kw, _ = prep.dist
             solver = dist_cls(A, mesh, **kw)
         else:
             solver = prep.cls(A, **prep.params)

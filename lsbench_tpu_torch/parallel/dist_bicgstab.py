@@ -24,9 +24,8 @@ import torch
 
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
 from lsbench_tpu_torch.parallel.dist_cg import local_inv_diag
-from lsbench_tpu_torch.parallel.dist_spmv import (RowShard,
-                                                  build_dist_matvec,
-                                                  fused_psum)
+from lsbench_tpu_torch.parallel.dist_spmv import (RowPartitioned,
+                                                  RowShard, fused_psum)
 from lsbench_tpu_torch.parallel.mesh import RowMesh
 from lsbench_tpu_torch.parallel.perm import resolve_dist_ordering
 from lsbench_tpu_torch.solvers.base import SolveResult, Solver, true_relres
@@ -80,7 +79,7 @@ def dist_bicgstab_loop(mesh: RowMesh, matvec, papply, b_l, rtol, maxiter,
     return x, it, rr, r0n2
 
 
-class DistributedBicgstab(Solver):
+class DistributedBicgstab(RowPartitioned, Solver):
     """Jacobi-preconditioned BiCGSTAB over the row partition, in `dtype`
     (f64 by default: the JAX CLI's `ginkgo`/`bicgstab --devices N`)."""
 
@@ -101,8 +100,8 @@ class DistributedBicgstab(Solver):
                         else max(10 * A.nrows, 1000))
 
         t0 = time.perf_counter()
-        dm = build_dist_matvec(A, mesh, self.dtype, strategy=strategy,
-                               local_spmv=local_spmv, row_align=row_align)
+        dm = self._matvec(A, self.dtype, strategy=strategy,
+                          local_spmv=local_spmv, row_align=row_align)
         self.setup_breakdown["layout_s"] = time.perf_counter() - t0
         self.strategy = dm.strategy
         self.local_spmv = dm.local_spmv
@@ -129,8 +128,7 @@ class DistributedBicgstab(Solver):
         true_rel = true_relres(self.A, x, b)
         return SolveResult(x=x, iters=iters, relres=relres,
                            converged=true_rel <= self.rtol or bnorm == 0.0,
-                           extra={"strategy": self.strategy,
-                                  "local_spmv": self.local_spmv,
+                           extra={**self._layout_extra(halo=False),
                                   "true_relres": true_rel})
 
     def solve_fn(self):

@@ -27,9 +27,8 @@ import torch
 
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
 from lsbench_tpu_torch.parallel.dist_cg import local_inv_diag
-from lsbench_tpu_torch.parallel.dist_spmv import (RowShard,
-                                                  build_dist_matvec,
-                                                  fused_psum)
+from lsbench_tpu_torch.parallel.dist_spmv import (RowPartitioned,
+                                                  RowShard, fused_psum)
 from lsbench_tpu_torch.parallel.mesh import RowMesh
 from lsbench_tpu_torch.parallel.perm import resolve_dist_ordering
 from lsbench_tpu_torch.solvers.base import SolveResult, Solver, true_relres
@@ -41,7 +40,7 @@ def _cdots_psum(mesh: RowMesh, *pairs):
     return fused_psum(mesh, *[(u * v).sum(dim=0) for u, v in pairs])
 
 
-class DistributedBlockCg(Solver):
+class DistributedBlockCg(RowPartitioned, Solver):
     """Simultaneous-column block PCG over the row partition, f32 + f64
     refinement."""
 
@@ -66,12 +65,10 @@ class DistributedBlockCg(Solver):
         self.n = A.nrows
 
         t0 = time.perf_counter()
-        dm32 = build_dist_matvec(A, mesh, torch.float32, strategy=strategy,
-                                 local_spmv=local_spmv, row_align=row_align)
-        dm64 = build_dist_matvec(A, mesh, torch.float64,
-                                 strategy=dm32.strategy,
-                                 local_spmv=dm32.local_spmv,
-                                 row_align=row_align)
+        dm32 = self._matvec(A, torch.float32, strategy=strategy,
+                            local_spmv=local_spmv, row_align=row_align)
+        dm64 = self._matvec(A, torch.float64, strategy=dm32.strategy,
+                            local_spmv=dm32.local_spmv, row_align=row_align)
         self.setup_breakdown["layout_s"] = time.perf_counter() - t0
         self.strategy = dm32.strategy
         self.local_spmv = dm32.local_spmv
@@ -151,9 +148,7 @@ class DistributedBlockCg(Solver):
                                   "nrhs": self.nrhs,
                                   "method": "simultaneous",
                                   "relres_cols": relres_cols.tolist(),
-                                  "strategy": self.strategy,
-                                  "local_spmv": self.local_spmv,
-                                  "halo": self.plan.halo,
+                                  **self._layout_extra(),
                                   "true_relres": true_rel,
                                   "precision_mode": "fp32_ir"})
 

@@ -24,9 +24,8 @@ import numpy as np
 import torch
 
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
-from lsbench_tpu_torch.parallel.dist_spmv import (RowShard,
-                                                  build_dist_matvec,
-                                                  fused_psum)
+from lsbench_tpu_torch.parallel.dist_spmv import (RowPartitioned,
+                                                  RowShard, fused_psum)
 from lsbench_tpu_torch.parallel.mesh import RowMesh
 from lsbench_tpu_torch.parallel.perm import resolve_dist_ordering
 from lsbench_tpu_torch.solvers.base import SolveResult, Solver, true_relres
@@ -73,7 +72,7 @@ def local_inv_diag(A: CsrMatrix, n_pad: int, mesh: RowMesh, nloc: int,
                            device=mesh.device)
 
 
-class DistributedCg(Solver):
+class DistributedCg(RowPartitioned, Solver):
     """CG over the row partition, on one card per rank or on CPU ranks."""
 
     name = "dist_cg"
@@ -94,8 +93,8 @@ class DistributedCg(Solver):
         self.maxiter = int(maxiter) if maxiter is not None else max(10 * A.nrows, 1000)
 
         t0 = time.perf_counter()
-        dm = build_dist_matvec(A, mesh, self.dtype, strategy=strategy,
-                               local_spmv=local_spmv, row_align=row_align)
+        dm = self._matvec(A, self.dtype, strategy=strategy,
+                          local_spmv=local_spmv, row_align=row_align)
         self.setup_breakdown["layout_s"] = time.perf_counter() - t0
         self.strategy = dm.strategy
         self.plan = dm.plan
@@ -154,9 +153,7 @@ class DistributedCg(Solver):
         true_rel = true_relres(self.A, x, b)
         return SolveResult(x=x, iters=iters, relres=relres,
                            converged=true_rel <= self.rtol,
-                           extra={"strategy": self.strategy,
-                                  "local_spmv": self.local_spmv,
-                                  "halo": self.plan.halo,
+                           extra={**self._layout_extra(),
                                   "true_relres": true_rel})
 
     def solve_fn(self):

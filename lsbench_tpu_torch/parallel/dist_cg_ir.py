@@ -17,8 +17,13 @@ and restarted GMRES (`DistributedGmresIr`) for nonsymmetric ones. The
 BiCGSTAB inner loop carries the port's shadow restart and the GMRES inner
 loop its stagnation stop (`dist_bicgstab.py`, `dist_gmres.py`). The JAX
 package runs the outer and inner loops as one `shard_map` program; here
-each stop test reads one reduced scalar on the host. The 2-D partition's
-classes wait for `dist2d`.
+each stop test reads one reduced scalar on the host.
+
+The 2-D partition's classes (`DistributedKrylovIr2d` and its three
+subclasses, `--precision fp32_ir --mesh RxC`) are the same loops on the
+grid's operators (`dist2d.On2dGrid`): the SELL f32 kernel between a
+gather over the grid column and a reduce-scatter over the grid row for
+the inner iteration, the SELL f64 kernel for the residual.
 """
 
 from __future__ import annotations
@@ -30,11 +35,11 @@ import torch
 
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
 from lsbench_tpu_torch.parallel.dist_bicgstab import dist_bicgstab_loop
+from lsbench_tpu_torch.parallel.dist2d import On2dGrid
 from lsbench_tpu_torch.parallel.dist_cg import dist_cg_loop, local_inv_diag
 from lsbench_tpu_torch.parallel.dist_gmres import dist_gmres_loop
-from lsbench_tpu_torch.parallel.dist_spmv import (RowShard,
-                                                  build_dist_matvec,
-                                                  fused_psum)
+from lsbench_tpu_torch.parallel.dist_spmv import (RowPartitioned,
+                                                  RowShard, fused_psum)
 from lsbench_tpu_torch.parallel.mesh import RowMesh
 from lsbench_tpu_torch.parallel.perm import resolve_dist_ordering
 from lsbench_tpu_torch.solvers.base import SolveResult, Solver, true_relres
@@ -74,7 +79,35 @@ def _gmres_inner(mesh, mv, invd_l, rhs_l, inner_rtol, maxiter, restart):
 
 # ------------------------------------------------------------------ solver
 
-class DistributedKrylovIr(Solver):
+def dist_refine_loop(mesh: RowMesh, b_l, rtol, max_refine, inner, mv64):
+    """The f64 refinement on this rank's rows: per pass an f32 solve of
+    A d ≈ r/‖r‖ (`inner(rhs32) -> (d32_l, iters)`), x += d·‖r‖, and the
+    f64 residual r = b − A·x through `mv64` with one all_reduce. Returns
+    (x_l, rr, bb, iters, passes), rr and bb the reduced ‖r‖² and ‖b‖²."""
+    (bb,) = fused_psum(mesh, torch.dot(b_l, b_l))
+    tol2 = (rtol ** 2) * bb
+    x = torch.zeros_like(b_l)
+    r, rr = b_l, bb
+    iters = passes = 0
+    while passes < max_refine and bool(rr > tol2):
+        # One f64 SpMV per PASS, not per iteration: the residual carries
+        # across passes.
+        scale = torch.sqrt(rr)
+        safe = torch.where(scale > 0, scale, 1.0)
+        rhs32 = r.float() * (1.0 / safe).float()
+        d32, inner_iters = inner(rhs32)
+        # A non-finite correction (f32 breakdown) must not poison x; drop
+        # it and let the pass cap end the loop.
+        d32 = torch.where(torch.isfinite(d32), d32, 0.0)
+        x = x + (d32 * safe.float()).double()
+        r = b_l - mv64(x)
+        (rr,) = fused_psum(mesh, torch.dot(r, r))
+        iters += inner_iters
+        passes += 1
+    return x, rr, bb, iters, passes
+
+
+class DistributedKrylovIr(RowPartitioned, Solver):
     """f32 distributed inner Krylov solve + f64 distributed refinement.
 
     Subclasses pick the inner method via `_inner(mv, invd_l, rhs32_l)`;
@@ -102,12 +135,10 @@ class DistributedKrylovIr(Solver):
         # the rank count and row_align): f32 for the inner iteration, f64
         # for the residual.
         t0 = time.perf_counter()
-        dm32 = build_dist_matvec(A, mesh, torch.float32, strategy=strategy,
-                                 local_spmv=local_spmv, row_align=row_align)
-        dm64 = build_dist_matvec(A, mesh, torch.float64,
-                                 strategy=dm32.strategy,
-                                 local_spmv=dm32.local_spmv,
-                                 row_align=row_align)
+        dm32 = self._matvec(A, torch.float32, strategy=strategy,
+                            local_spmv=local_spmv, row_align=row_align)
+        dm64 = self._matvec(A, torch.float64, strategy=dm32.strategy,
+                            local_spmv=dm32.local_spmv, row_align=row_align)
         self.setup_breakdown["layout_s"] = time.perf_counter() - t0
         if (dm32.n_pad, dm32.nloc) != (dm64.n_pad, dm64.nloc):
             raise AssertionError("f32 and f64 partitions differ")
@@ -126,29 +157,11 @@ class DistributedKrylovIr(Solver):
         raise NotImplementedError
 
     def _run(self, b):
-        mesh = self.mesh
-        b_l = self._rows.local(b, torch.float64)
-        (bb,) = fused_psum(mesh, torch.dot(b_l, b_l))
-        tol2 = (self.rtol ** 2) * bb
-        x = torch.zeros_like(b_l)
-        r, rr = b_l, bb
-        iters = passes = 0
-        while passes < self.max_refine and bool(rr > tol2):
-            # One f64 SpMV per PASS, not per iteration: the residual
-            # carries across passes.
-            scale = torch.sqrt(rr)
-            safe = torch.where(scale > 0, scale, 1.0)
-            rhs32 = r.float() * (1.0 / safe).float()
-            d32, inner_iters = self._inner(self._mv32, self._invd, rhs32)
-            # A non-finite correction (f32 breakdown) must not poison x;
-            # drop it and let the pass cap end the loop.
-            d32 = torch.where(torch.isfinite(d32), d32, 0.0)
-            x = x + (d32 * safe.float()).double()
-            r = b_l - self._mv64(x)
-            (rr,) = fused_psum(mesh, torch.dot(r, r))
-            iters += inner_iters
-            passes += 1
-        return x, rr, bb, iters, passes
+        return dist_refine_loop(
+            self.mesh, self._rows.local(b, torch.float64), self.rtol,
+            self.max_refine,
+            lambda rhs32: self._inner(self._mv32, self._invd, rhs32),
+            self._mv64)
 
     def solve(self, b) -> SolveResult:
         x_l, rr, bb, iters, passes = self._run(b)
@@ -159,9 +172,7 @@ class DistributedKrylovIr(Solver):
         return SolveResult(x=x, iters=iters, relres=relres,
                            converged=true_rel <= self.rtol or bnorm == 0.0,
                            extra={"refine_passes": passes,
-                                  "strategy": self.strategy,
-                                  "local_spmv": self.local_spmv,
-                                  "halo": self.plan.halo,
+                                  **self._layout_extra(),
                                   "true_relres": true_rel,
                                   "precision_mode": "fp32_ir_auto"})
 
@@ -207,3 +218,30 @@ class DistributedGmresIr(DistributedKrylovIr):
     def _inner(self, mv, invd_l, rhs_l):
         return _gmres_inner(self.mesh, mv, invd_l, rhs_l, self.inner_rtol,
                             self.maxiter, self.restart)
+
+
+# ------------------------------------------------- 2-D partition variants
+
+class DistributedKrylovIr2d(On2dGrid, DistributedKrylovIr):
+    """fp64 semantics over the (rows × cols) grid: the f32 inner Krylov
+    solve and the once-per-pass f64 residual on the 2-D schedule
+    (`dist2d.py`); subclasses pick the inner method."""
+
+
+class DistributedCgIr2d(DistributedKrylovIr2d, DistributedCgIr):
+    """`--solver cg_ir --mesh RxC` (and `cg --precision fp32_ir`)."""
+
+    name = "dist_cg_ir2d"
+
+
+class DistributedBicgstabIr2d(DistributedKrylovIr2d, DistributedBicgstabIr):
+    """`--solver bicgstab/ginkgo --precision fp32_ir --mesh RxC`."""
+
+    name = "dist_bicgstab_ir2d"
+
+
+class DistributedGmresIr2d(DistributedKrylovIr2d, DistributedGmresIr):
+    """`--solver gmres --precision fp32_ir --mesh RxC`, with the GMRES
+    inner loop's stagnation stop."""
+
+    name = "dist_gmres_ir2d"

@@ -107,6 +107,73 @@ def build_halo_plan(A: CsrMatrix, n_devices: int, dtype,
         needs_all_gather=needs_all_gather)
 
 
+@dataclass
+class RectHaloPlan:
+    """Halo plan of a rectangular row-partitioned operator (the AMG
+    transfer operators P and R, `dist_amg.py`): rank r owns rows
+    [r·nloc_rows, (r+1)·nloc_rows) of M and the block [r·nloc_cols,
+    (r+1)·nloc_cols) of the source vector. The exchange moves the H
+    boundary rows of the source vector as for a square operator
+    (`halo_spmv_local` applies both); `needs_all_gather` when the reach
+    exceeds one neighbour block, and then the columns are global ids."""
+    vals: torch.Tensor     # (nrow_pad, k) on the host
+    cols: torch.Tensor     # (nrow_pad, k) int32, extended-local source ids
+    halo: int
+    nloc_rows: int
+    nloc_cols: int
+    needs_all_gather: bool
+
+
+def build_rect_halo_plan(M: CsrMatrix, n_devices: int, nloc_rows: int,
+                         nloc_cols: int, dtype) -> RectHaloPlan:
+    """`build_halo_plan` with independent row and source block sizes (a
+    fine and a coarse level's)."""
+    nrow_pad = nloc_rows * n_devices
+    r, c, v = M.to_coo()
+    off = c - (r // nloc_rows) * nloc_cols
+    reach_left = int(np.maximum(0, -off).max(initial=0))
+    reach_right = int(np.maximum(0, off - (nloc_cols - 1)).max(initial=0))
+    H = _round_up(max(max(reach_left, reach_right), 1), 8)
+    needs_all_gather = H > nloc_cols
+
+    counts = np.diff(M.offs)
+    k = max(int(counts.max(initial=0)), 1)
+    vals = np.zeros((nrow_pad, k), dtype=np.float64)
+    # Padding slots: value 0 with a safe in-range source id.
+    cols = np.full((nrow_pad, k), 0 if needs_all_gather else H,
+                   dtype=np.int32)
+    rows_idx = M.row_indices()
+    slot = np.arange(M.nnz) - M.offs[rows_idx]
+    vals[rows_idx, slot] = v
+    cols[rows_idx, slot] = (c if needs_all_gather
+                            else off + H).astype(np.int32)
+    return RectHaloPlan(
+        vals=torch.as_tensor(vals).to(dtype), cols=torch.as_tensor(cols),
+        halo=H, nloc_rows=nloc_rows, nloc_cols=nloc_cols,
+        needs_all_gather=needs_all_gather)
+
+
+def local_rect_block(M: CsrMatrix, n_devices: int, rank: int,
+                     nloc_rows: int, nloc_cols: int
+                     ) -> tuple[CsrMatrix, int]:
+    """(block, H): rank's rows of the rectangular M as an (nloc_rows ×
+    nloc_cols + 2H) CSR over the source vector's halo-extended local
+    coordinates, numbered as `build_rect_halo_plan` numbers them. Only
+    meaningful where H ≤ nloc_cols."""
+    plan = build_rect_halo_plan(M, n_devices, nloc_rows, nloc_cols,
+                                torch.float64)
+    lo = rank * nloc_rows
+    vals = plan.vals[lo: lo + nloc_rows].numpy()
+    cols = plan.cols[lo: lo + nloc_rows].numpy()
+    n_ext = nloc_cols + 2 * plan.halo
+    r, s = np.nonzero(vals)  # padding slots hold zeros
+    if r.size == 0:  # a rank of padding rows only
+        return (CsrMatrix(nloc_rows, n_ext, np.zeros(nloc_rows + 1, np.int64),
+                          np.zeros(0, np.int32), np.zeros(0)), plan.halo)
+    return (CsrMatrix.from_coo(r, cols[r, s], vals[r, s], nrows=nloc_rows,
+                               ncols=n_ext), plan.halo)
+
+
 def force_global_cols(A: CsrMatrix, plan: HaloSpmvPlan) -> HaloSpmvPlan:
     """Rebuild the plan's column ids as global indices (all_gather path)."""
     k = plan.vals.shape[1]
@@ -211,7 +278,9 @@ def _halo_exchange(mesh: RowMesh, x_l: torch.Tensor, H: int) -> torch.Tensor:
 
 def halo_spmv_local(mesh: RowMesh, halo: int, vals_l, cols_l, x_l):
     """Halo exchange, then the gather-ELL local SpMV (any dtype).
-    vals_l/cols_l: this rank's (nloc, k) block; x_l: (nloc,) → (nloc,)."""
+    vals_l/cols_l: this rank's (nloc_rows, k) block; x_l: the source
+    vector's (nloc_cols,) block, nloc_cols = nloc_rows for a square
+    operator → (nloc_rows,)."""
     x_ext = _halo_exchange(mesh, x_l, halo)
     return torch.sum(vals_l * x_ext[cols_l], dim=1)
 
@@ -341,6 +410,26 @@ def build_dist_matvec(A: CsrMatrix, mesh: RowMesh, dtype,
         matvec=matvec, matmat=matmat, strategy=strategy,
         local_spmv="bsr" if use_bsr else "ell", halo=plan.halo,
         nloc=plan.nloc, n_pad=plan.n_pad, n=plan.n, plan=plan)
+
+
+class RowPartitioned:
+    """The operator of a distributed solver class and the fields it
+    reports: the 1-D partition's halo or all_gather product
+    (`build_dist_matvec`). The 2-D grid's classes (`dist2d.On2dGrid`)
+    override both methods; the iterations are the same."""
+
+    def _matvec(self, A: CsrMatrix, dtype, strategy: str = "auto",
+                local_spmv: str = "auto", row_align: int = 8) -> DistMatvec:
+        return build_dist_matvec(A, self.mesh, dtype, strategy=strategy,
+                                 local_spmv=local_spmv, row_align=row_align)
+
+    def _layout_extra(self, halo: bool = True) -> dict:
+        """The record's layout fields (`halo` where the JAX class reports
+        it)."""
+        out = {"strategy": self.strategy, "local_spmv": self.local_spmv}
+        if halo:
+            out["halo"] = self.plan.halo
+        return out
 
 
 class RowShard:

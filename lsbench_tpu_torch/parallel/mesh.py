@@ -14,6 +14,14 @@ of waiting for ever.
 
 A `RowMesh` is a context manager: leaving it destroys the group, so that
 one process can run several distributed solves one after another.
+
+The 2-D partition (`dist2d.py`, `dist_amg2d.py`) lays the same ranks on a
+pr × pc grid, row-major as `jax.make_mesh((pr, pc))` orders its devices:
+rank c = i·pc + j sits at (i, j) and owns chunk c of every vector. A
+`GridMesh` is the row mesh plus two subgroups of it: the column group, the
+ranks (·, j) in ascending i, over which the JAX package's `all_gather`
+over ROWS runs, and the row group, the ranks (i, ·) in ascending j, over
+which its `psum_scatter` over COLS runs.
 """
 
 from __future__ import annotations
@@ -53,6 +61,41 @@ class RowMesh:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+@dataclass
+class GridMesh(RowMesh):
+    """This rank's place on the pr × pc grid: the row mesh's fields (the
+    group of all ranks included), its grid position (i, j) and the groups
+    of its grid column and grid row."""
+    pr: int = 1
+    pc: int = 1
+    i: int = 0
+    j: int = 0
+    col_group: object = None  # ranks (·, j), ascending i
+    row_group: object = None  # ranks (i, ·), ascending j
+
+
+def as_grid(mesh: RowMesh, pr: int, pc: int) -> GridMesh:
+    """The row mesh `mesh` of pr·pc ranks laid on a pr × pc grid. Every
+    rank calls this together: it creates every grid row's group and then
+    every grid column's, in one fixed order on all ranks (`dist.new_group`
+    is collective over the whole group), and keeps its own two. Each
+    group's ranks ascend, so group rank g of a row group is grid column
+    g and of a column group grid row g: `reduce_scatter` hands piece g to
+    group rank g and `all_gather` concatenates by group rank."""
+    if pr < 1 or pc < 1 or pr * pc != mesh.size:
+        raise ValueError(f"a {pr}x{pc} grid needs {pr * pc} ranks, the "
+                         f"mesh has {mesh.size}")
+    timeout = timedelta(seconds=GROUP_TIMEOUT_S)
+    rows = [dist.new_group([a * pc + b for b in range(pc)], timeout=timeout)
+            for a in range(pr)]
+    cols = [dist.new_group([a * pc + b for a in range(pr)], timeout=timeout)
+            for b in range(pc)]
+    i, j = divmod(mesh.rank, pc)
+    return GridMesh(rank=mesh.rank, size=mesh.size, device=mesh.device,
+                    group=mesh.group, _tmp=mesh._tmp, pr=pr, pc=pc, i=i,
+                    j=j, col_group=cols[j], row_group=rows[i])
 
 
 def check_devices(n_devices: int, platform: str) -> None:
@@ -104,6 +147,19 @@ def make_row_mesh(n_devices: int = 1, rank: int = 0,
         raise
     return RowMesh(rank=rank, size=n_devices, device=device,
                    group=dist.group.WORLD, _tmp=tmp)
+
+
+def make_mesh_2d(pr: int, pc: int, rank: int = 0,
+                 init_file: str | None = None,
+                 platform: str = "cuda") -> GridMesh:
+    """Join the group of pr·pc ranks as `rank` (`make_row_mesh`) and lay
+    it on the pr × pc grid (`as_grid`)."""
+    mesh = make_row_mesh(pr * pc, rank, init_file, platform)
+    try:
+        return as_grid(mesh, pr, pc)
+    except BaseException:
+        mesh.close()
+        raise
 
 
 def fetch_global(mesh: RowMesh, x_l: torch.Tensor, n: int) -> torch.Tensor:

@@ -273,7 +273,8 @@ def test_missing_or_malformed_file(tmp_path, capsys, content):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--solver", "hypre", "--devices", "2"], ["--mesh", "2x4"],
+    ["--solver", "hypre", "--devices", "2", "--mesh", "1x2"],
+    ["--mesh", "2x4", "--devices", "4", "--solver", "cg"],
     ["--solver", "hypre", "--nrhs", "2"],
     ["--coordinator", "localhost:1234"],
     ["--platform", "tpu"],
@@ -284,9 +285,13 @@ def test_unported_flags_exit_1(tiny_matrix_file, capsys, flags):
     rc, out, err = _run(main, argv, capsys)
     assert rc == 1 and not out
     # --nrhs > 1 with a solver of neither the cg nor the bicgstab family is
-    # refused as by the JAX CLI (test_block_cg.py::test_cli_nrhs_rejects_non_cg).
+    # refused as by the JAX CLI (test_block_cg.py::test_cli_nrhs_rejects_non_cg);
+    # so are a --mesh solver outside the 2-D family and a grid whose size
+    # is not --devices (the JAX CLI's messages).
     assert ("not yet ported" in err or "Unsupported platform" in err
-            or "--nrhs > 1 is implemented for" in err)
+            or "--nrhs > 1 is implemented for" in err
+            or "--mesh RxC supports" in err
+            or "--mesh 2x4 needs 8 devices but --devices=4" in err)
 
 
 @pytest.mark.parametrize("solver,extra,precision", [
