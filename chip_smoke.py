@@ -210,7 +210,27 @@ Phases, each of which raises (exit code 1) on failure:
    the grid's partials summed and scattered on the host (f32 within 1e-5,
    f64 within 1e-12 of the host product) and the transfers' rank rows
    concatenated (f64 within 1e-12); `--mesh 2x2 --devices 1` exits 1 with
-   the JAX CLI's message.
+   the JAX CLI's message. Since slice 15, the last module slice, also (after
+   the AMG and grid paths): `python -m lsbench_tpu_torch.scale` on
+   poisson_2d(512) with `--devices 1,2,4 --iters 100 --reps 3 --json
+   --ordering rcm --mesh2d` (its `main`: the `1x1` record, halo, 100
+   iterations; 2 and 4 skipped with the JAX message on one card; elapsed_s,
+   Gnnz/s and rank 0's launches, SELL f64 and no BSR kernel);
+   `run_dryrun(1, platform="cuda")` (every distributed solver of the dry
+   run in a spawned NCCL group of one, every assert; SELL f32, f64 and
+   SpMM launches, no BSR); the CLI's `cg_ir --devices 1 --coordinator
+   127.0.0.1:<free port> --num-processes 1 --process-id 0` (a TCPStore
+   rendezvous: the `--devices 1` run's iterations and passes, true relres
+   ≤ 1e-10, SELL f32 and f64, backend_init_s printed beside the FileStore
+   group's), and `--num-processes 2 --process-id 2` and `--coordinator
+   nohost` exiting 1 with the JAX messages; then, not paths, the sweep's
+   solve through the solver API (DistributedCg after 100 fixed
+   iterations within 1e-12 of the single-device f64 CG's x) and the
+   communication model of RCM poisson_2d(512) (the CG volumes at D = 1,
+   2, 4, 8 and on the 2 × 2 grid, the AMG-CG-IR solver's at `--devices
+   1`, the predicted efficiency at D = 2, 4, 8 from the sweep's time per
+   iteration, printed as a model with its link parameters). Each new
+   path prints its phase_s.
 
 Each path's launch counts are read from counters set to 0 just before it.
 Beside each kernel's times the record carries the bound of its function
@@ -292,6 +312,9 @@ PATHS = ("cg_ir --devices 1 poisson_2d(512)",
          "cg_ir --devices 1 --mesh 1x1 poisson_2d(512)",
          "cg --nrhs 8 --devices 1 --mesh 1x1 poisson_2d(512)",
          "cg --precond amg --devices 1 --mesh 1x1 poisson_2d(512)",
+         "scale --devices 1,2,4 --iters 100 --mesh2d poisson_2d(512) (1x1)",
+         "parallel.dryrun 1 poisson_2d(8) (rank 0)",
+         "cg_ir --coordinator --num-processes 1 --devices 1 poisson_2d(512)",
          "cg_ir --roofline poisson_2d(512) + random_spd(6408,23)",
          "cg_ir amg_classical poisson_2d(512)", "hypre poisson_2d(512)",
          "hypre poisson_2d(128)", "cg --nrhs 8 poisson_2d(512)",
@@ -972,19 +995,13 @@ def main_path_phase(matrices) -> dict:
 
 
 def reset_counts() -> None:
-    from lsbench_tpu_torch.ops import (interp_well, spmv_bsr, spmv_sell,
-                                       tri_sweep)
-    spmv_bsr.reset_launches()
-    interp_well.reset_launches()
-    spmv_sell.reset_launches()
-    tri_sweep.reset_launches()
+    from lsbench_tpu_torch.ops import launches
+    launches.reset()
 
 
 def read_counts() -> dict:
-    from lsbench_tpu_torch.ops import (interp_well, spmv_bsr, spmv_sell,
-                                       tri_sweep)
-    return {**spmv_bsr.LAUNCHES, **interp_well.LAUNCHES, **spmv_sell.LAUNCHES,
-            **tri_sweep.LAUNCHES}
+    from lsbench_tpu_torch.ops import launches
+    return launches.read()
 
 
 def _op_summary(op) -> str:
@@ -2723,6 +2740,7 @@ def distributed_paths_phase(tmp: str, matrices, card: str) -> list[dict]:
         counts.append(ran)
 
     counts += amg_and_grid_paths(files[p512], card, DIST_RECORDS["cg_ir"])
+    counts += multi_process_paths(files[p512], matrices[p512], card)
 
     # The distributed x against the single-device x, and the cost of one
     # fused all_reduce on NCCL at world size 1 (not paths).
@@ -2842,6 +2860,201 @@ def distributed_paths_phase(tmp: str, matrices, card: str) -> list[dict]:
           f"--mesh 2x2 --devices 1: rc {rc}, stderr {err.getvalue()!r}")
     print(f"--mesh 2x2 --devices 1: exit 1, \"{msg}\"")
     return counts
+
+
+def free_port() -> int:
+    """A TCP port of 127.0.0.1 that nothing listens on now."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multi_process_paths(f512: str, A, card: str) -> list[dict]:
+    """The last module slice's entry points on the card: the scaling sweep
+    (`python -m lsbench_tpu_torch.scale`), the distributed dry run
+    (`run_dryrun(1)`), the CLI's `--coordinator` group of one, then (not
+    paths) the sweep's x against the single-device CG's and the
+    communication model of RCM poisson_2d(512). Returns the three paths'
+    launch counts: rank 0's, counted in its own process for the sweep and
+    the dry run (their ranks are spawned), the CLI's here."""
+    import torch
+
+    from lsbench_tpu_torch.harness import scale
+    from lsbench_tpu_torch.parallel.dryrun import run_dryrun
+
+    counts = []
+    # The scaling sweep on one card: the 1x1 record; 2 and 4 skipped.
+    t0 = time.perf_counter()
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = scale.main(["--matrix", f512, "--devices", "1,2,4", "--iters",
+                         "100", "--reps", "3", "--json", "--ordering", "rcm",
+                         "--mesh2d"])
+    recs = [json.loads(ln) for ln in out.getvalue().splitlines()
+            if ln.startswith("{")]
+    have = torch.cuda.device_count()
+    skip = (f"# skipping device counts {[d for d in (2, 4) if d > have]}: "
+            f"only {have} devices (cuda)")
+    check(rc == 0 and [r["mesh"] for r in recs][:1] == ["1x1"]
+          and (have > 1 or (len(recs) == 1 and skip in err.getvalue())),
+          f"scale: rc {rc}, meshes {[r['mesh'] for r in recs]}, stderr "
+          f"{err.getvalue()!r}")
+    rec = recs[0]
+    ran = rec["launches"]
+    check(ran["sell_f64"] > 0 and not any(ran[k] for k in ran
+                                          if k.startswith("bsr")),
+          f"scale 1x1: launches {ran}")
+    check(rec["strategy"] == "halo" and rec["iters"] == 100,
+          f"scale 1x1: {rec}")
+    print(f"multi-process path scale --devices 1,2,4 --iters 100 --reps 3 "
+          f"--ordering rcm --mesh2d poisson_2d(512): mesh {rec['mesh']} "
+          f"elapsed_s={rec['elapsed_s']} ({rec['elapsed_s'] / 100 * 1e6:.1f}"
+          f" µs/iteration) Gnnz/s={rec['nnz_per_s'] / 1e9:.4f} strategy "
+          f"{rec['strategy']}; stderr \"{err.getvalue().strip()}\" | {card} |"
+          f" launches={ran} phase_s={time.perf_counter() - t0:.2f}")
+    counts.append(ran)
+    t1_iter = rec["elapsed_s"] / 100
+
+    # The dry run: every distributed solver, an NCCL group of one.
+    t0 = time.perf_counter()
+    dry = run_dryrun(1, platform="cuda")
+    ran = dry["launches"]
+    check(all(ran[k] > 0 for k in ("sell_f32", "sell_f64", "sell_mm_f32"))
+          and not any(ran[k] for k in ran if k.startswith("bsr")),
+          f"dryrun 1: launches {ran}")
+    print("multi-process path parallel.dryrun 1 (cuda): " + ", ".join(
+        f"{k} {it} it {r:.2e}" for k, (it, r) in dry["solves"].items())
+        + f" | {card} | launches={ran} "
+          f"phase_s={time.perf_counter() - t0:.2f}")
+    counts.append(ran)
+
+    # --coordinator: a group of one process, meeting at a TCPStore.
+    t0 = time.perf_counter()
+    port = free_port()
+    base = DIST_RECORDS["cg_ir"]
+    argv = ["--solver", "cg_ir", "--ordering", "rcm", "--rtol", "1e-10",
+            "--trials", "1", "--warmups", "0", "--json", "--devices", "1"]
+    rec, ran, wall = cli_path(
+        "cg_ir --coordinator --devices 1 poisson_2d(512)", f512,
+        [*argv, "--coordinator", f"127.0.0.1:{port}", "--num-processes", "1",
+         "--process-id", "0"])
+    check(rec["iters"] == base["iters"]
+          and rec["refine_passes"] == base["refine_passes"]
+          and rec["converged"] is True and rec["true_relres"] <= 1e-10
+          and "backend_init_s" in rec,
+          f"--coordinator --devices 1: iters {rec['iters']} passes "
+          f"{rec.get('refine_passes')} true_relres {rec['true_relres']:.3e}"
+          f", --devices 1: {base['iters']} {base['refine_passes']}")
+    check(ran["sell_f32"] > 0 and ran["sell_f64"] > 0
+          and not any(ran[k] for k in ran if k.startswith("bsr")),
+          f"--coordinator --devices 1: launches {ran}")
+    print(f"multi-process path cg_ir --coordinator 127.0.0.1:{port} "
+          f"--num-processes 1 --process-id 0 --devices 1 poisson_2d(512): "
+          f"iters={rec['iters']} passes={rec['refine_passes']} "
+          f"true_relres={rec['true_relres']:.3e} backend_init_s="
+          f"{rec['backend_init_s']:.3f} solve_s={rec['solve_s']:.4f} "
+          f"cli_wall_s={wall:.2f} | --devices 1 (FileStore): iters="
+          f"{base['iters']} passes={base['refine_passes']} backend_init_s="
+          f"{base['backend_init_s']:.3f} solve_s={base['solve_s']:.4f} | "
+          f"{card} | launches={ran} phase_s={time.perf_counter() - t0:.2f}")
+    counts.append(ran)
+    for flags, msg in (
+            (["--coordinator", f"127.0.0.1:{free_port()}", "--num-processes",
+              "2", "--process-id", "2"], "process_id 2 out of range [0, 2)"),
+            (["--coordinator", "nohost"],
+             "coordinator must be 'host:port', got 'nohost'")):
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err), \
+                contextlib.redirect_stdout(io.StringIO()) as out:
+            from lsbench_tpu_torch.harness.cli import main as cli_main
+            rc = cli_main(["--matrix", f512, *argv, *flags])
+        check(rc == 1 and msg in err.getvalue() and not out.getvalue(),
+              f"{flags}: rc {rc}, stderr {err.getvalue()!r}")
+        print(f"{' '.join(flags)}: exit 1, \"{msg}\"")
+
+    fixed_iteration_x(A)
+    comm_model_report(A, t1_iter, card)
+    return counts
+
+
+def fixed_iteration_x(A) -> None:
+    """The sweep's solve through the solver API in a group of one: the
+    distributed CG's x after 100 fixed iterations against the single-device
+    f64 CG's after the same 100 (within 1e-12 relative)."""
+    import torch
+
+    from lsbench_tpu_torch.parallel.dist_cg import DistributedCg
+    from lsbench_tpu_torch.parallel.mesh import make_row_mesh
+    from lsbench_tpu_torch.solvers.cg import CgSolver
+
+    t0 = time.perf_counter()
+    b = np.arange(A.nrows, dtype=np.float64)
+    with make_row_mesh(1, platform="cuda") as mesh:
+        rd = DistributedCg(A, mesh, rtol=0.0, maxiter=100,
+                           ordering="rcm").solve(b)
+    rs = CgSolver(A, dtype=torch.float64, rtol=0.0, maxiter=100,
+                  ordering="rcm", device="cuda").solve(b)
+    rel = float(torch.linalg.norm(rd.x - rs.x) / torch.linalg.norm(rs.x))
+    check(rd.iters == rs.iters == 100 and rel <= 1e-12,
+          f"fixed-iteration x: iters {rd.iters}/{rs.iters}, rel {rel:.3e}")
+    print(f"scale's solve, 100 fixed iterations, RCM poisson_2d(512): "
+          f"DistributedCg (NCCL group of one) vs single-device f64 CG x: "
+          f"‖Δx‖/‖x‖ = {rel:.3e} (≤ 1e-12); "
+          f"{time.perf_counter() - t0:.2f} s")
+
+
+def comm_model_report(A, t1_iter: float, card: str) -> None:
+    """The communication model of RCM poisson_2d(512): the CG volumes at
+    D = 1, 2, 4, 8 and on the 2 × 2 grid, the AMG-CG-IR solver's of the
+    `--devices 1` path, and the predicted efficiency at D = 2, 4, 8 from
+    the sweep's measured time per iteration. A model, not a
+    measurement."""
+    import dataclasses
+
+    import torch
+
+    from lsbench_tpu_torch.ordering import get_ordering
+    from lsbench_tpu_torch.parallel import comm_model as cm
+    from lsbench_tpu_torch.parallel.dist_amg import DistributedAmgCgIr
+    from lsbench_tpu_torch.parallel.mesh import make_row_mesh
+
+    t0 = time.perf_counter()
+    Ar = A.permuted(get_ordering("rcm", A))
+    f64 = torch.float64
+    link = (f"link {cm.NVLINK4_GBPS} GB/s per direction (NVLink 4, data "
+            f"sheet), hop {cm.NVLINK_HOP_LATENCY_S * 1e6} µs (assumed)")
+    print(f"communication model (model, not a measurement), RCM "
+          f"poisson_2d(512), f64; {link}; t1 = {t1_iter * 1e6:.1f} µs per "
+          f"iteration (the scale sweep's 1x1 record on {card}):")
+    for D in (1, 2, 4, 8):
+        cv = cm.cg_comm_volume(Ar, D, f64)
+        eff, t_d = cm.predict_efficiency(t1_iter, cv)
+        print(f"  D={D}: {dataclasses.asdict(cv)} bytes_per_iter="
+              f"{cv.bytes_per_iter}"
+              + (f" predicted efficiency {eff:.3f} (t_iter "
+                 f"{t_d * 1e6:.1f} µs)" if D > 1 else ""))
+    cv = cm.cg2d_comm_volume(Ar, 2, 2, f64)
+    eff, t_d = cm.predict_efficiency(t1_iter, cv)
+    print(f"  2x2 grid: {dataclasses.asdict(cv)} predicted efficiency "
+          f"{eff:.3f} (t_iter {t_d * 1e6:.1f} µs)")
+    classical = dict(coarsening="classical", theta=0.5, interp="jacobi",
+                     interp_passes=3, interp_omega=0.5, pmax=8)
+    with make_row_mesh(1, platform="cuda") as mesh:
+        s = DistributedAmgCgIr(A, mesh, **classical)
+        av = cm.amg_comm_volume(s)
+    check(av.n_devices == 1 and len(av.levels) == s.n_levels - 1
+          and av.psums_per_iter == 2 and av.all_gathers_per_cycle == 1,
+          f"AMG-CG-IR comm volume: {av}")
+    print(f"  AMG-CG-IR (cg_ir --precond amg_classical --devices 1): "
+          f"{s.n_levels} levels, per cycle {av.ppermutes_per_cycle} "
+          f"ppermutes, {av.all_gathers_per_cycle} all_gathers, "
+          f"{av.psums_per_cycle} psums; per iteration "
+          f"{av.ppermutes_per_iter} ppermutes, {av.all_gathers_per_iter} "
+          f"all_gathers, {av.psums_per_iter} psums ({av.psum_scalars} "
+          f"scalars), {av.bytes_per_iter_payload} B (D = 1 moves none); "
+          f"halos A {[lv.a_halo for lv in av.levels]}")
+    print(f"  ({time.perf_counter() - t0:.2f} s)")
 
 
 def amg_and_grid_paths(f512: str, card: str, dist_cg_ir: dict) -> list[dict]:

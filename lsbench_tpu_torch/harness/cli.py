@@ -21,9 +21,20 @@ the group is NCCL, on `--platform cpu` the ranks are gloo processes;
 the AMG family (`amg`, `hypre`, `amgx`, `paralmond`, `--precond amg*`)
 runs the row-partitioned cycle (`parallel/dist_amg.py`). `--mesh RxC` lays
 the N ranks on an R × C grid (`parallel/dist2d.py`, `dist_amg2d.py`).
-Flags whose machinery is not ported yet exit 1 with a message; a layout,
-preconditioner or solve schedule that is not ported yet does too, and
-nothing else is substituted for it.
+`--coordinator HOST:PORT --num-processes P --process-id i` joins P
+processes started apart, on one host or several (`parallel/mesh.py
+init_distributed`). With `--devices N` the N global ranks are split
+evenly: process i runs L = N/P of them, global ranks i·L .. i·L + L − 1
+(itself the first, the others spawned), on its own cards 0..L−1, and the
+ranks meet through a TCPStore at the coordinator. The JAX CLI's mesh
+spans the first N global devices instead, whatever each process holds;
+here N must be a multiple of P, else the run exits 1. Every process
+prints the record, as every JAX process does: x is gathered on every
+rank, so the records agree. Without `--devices`, `--coordinator` only
+validates and records the process, and each process runs the
+single-device solve, as in the JAX CLI.
+A layout, preconditioner or solve schedule that is not ported yet exits 1
+with a message, and nothing else is substituted for it.
 """
 
 from __future__ import annotations
@@ -43,7 +54,9 @@ from lsbench_tpu_torch.harness.bench import (BenchRecord, reference_rhs,
                                              run_bench)
 from lsbench_tpu_torch.matrix.io import MatrixFormatError, read_matrix
 from lsbench_tpu_torch.parallel.mesh import (GROUP_TIMEOUT_S, check_devices,
-                                             make_mesh_2d, make_row_mesh)
+                                             distributed_process,
+                                             init_distributed, make_mesh_2d,
+                                             make_row_mesh)
 from lsbench_tpu_torch.solvers.base import get_solver, list_solvers
 
 ORDERINGS = ("none", "rcm", "amd", "metis")
@@ -54,8 +67,8 @@ PRECISION_DTYPES = {
     "fp32_ir": "mixed",  # f32 inner solve + f64 iterative refinement
 }
 
-# Flags of the JAX CLI whose machinery is not ported yet (ROADMAP.md).
-_NOT_PORTED = (("coordinator", "--coordinator"),)
+# Flags of the JAX CLI whose machinery is not ported yet (ROADMAP.md). None.
+_NOT_PORTED = ()
 # Solvers of the JAX package's registry that are not ported yet: refused,
 # where an unknown name would fall back to the default solver. None.
 _NOT_PORTED_SOLVERS = ()
@@ -122,13 +135,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "(cg/cg_ir/bicgstab/ginkgo/gmres fp32_ir, --nrhs k "
                         "block CG, --precond amg: all_gather over the grid "
                         "column, reduce-scatter over the grid row)")
-    # Accepted so reference command lines parse; not ported yet.
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="not yet ported")
+                   help="multi-process: where process 0's first rank "
+                        "serves the store the ranks meet through; with "
+                        "--devices N each of the processes runs N/P of "
+                        "the N ranks")
     p.add_argument("--num-processes", type=int, default=None,
-                   help="with --coordinator (not yet ported)")
+                   help="multi-process: the number of processes (omit "
+                        "with --process-id to read WORLD_SIZE and RANK)")
     p.add_argument("--process-id", type=int, default=None,
-                   help="with --coordinator (not yet ported)")
+                   help="multi-process: this process's id")
     return p
 
 
@@ -202,9 +218,25 @@ def _prepare(args) -> _Prepared | int:
               "--platform cpu to run the plain PyTorch versions).",
               file=sys.stderr)
         return 1
+    if args.coordinator:
+        try:
+            pid = init_distributed(args.coordinator, args.num_processes,
+                                   args.process_id)
+        except ValueError as e:
+            print(str(e), file=sys.stderr)
+            return 1
+        nproc = distributed_process().num_processes
+        if args.devices is not None and args.devices % nproc:
+            print(f"--devices {args.devices} is not a multiple of the "
+                  f"{nproc} processes: each process runs --devices / "
+                  "--num-processes ranks", file=sys.stderr)
+            return 1
+        if args.verbose >= 1:
+            print(f"distributed: process {pid}/{nproc}, "
+                  f"{args.devices or nproc} global devices", file=sys.stderr)
     if args.devices is not None:
         try:
-            check_devices(args.devices, platform)
+            check_devices(_local_ranks(args)[1], platform)
         except ValueError as e:
             print(str(e), file=sys.stderr)
             return 1
@@ -448,21 +480,35 @@ def _make_distributed(solver_name: str, args, params):
     return None
 
 
+def _local_ranks(args) -> tuple[int, int]:
+    """(global rank of this process's first rank, ranks this process
+    runs) of `--devices N`: all N on one host, N/P for each of the P
+    processes of a `--coordinator` group."""
+    if not args.coordinator:
+        return 0, args.devices
+    info = distributed_process()
+    local = args.devices // info.num_processes
+    return info.process_id * local, local
+
+
 def _run(args, prep: _Prepared, ranks: tuple | None = None) -> int:
     """Set up the solver, run the timed trials and print the record. With
-    `ranks` = (n, rank, init_file) this process is that rank of a group
-    of n: it builds its shard of the distributed solver, runs the same
-    (collective) trials as every rank, and prints only as rank 0."""
+    `ranks` = (n, rank, local_rank, init_file) this process is global
+    rank `rank` of a group of n, the `local_rank`-th of its process: it
+    builds its shard of the distributed solver, runs the same
+    (collective) trials as every rank, and prints only as its process's
+    first rank. The ranks meet through the FileStore `init_file`, or at
+    `--coordinator`."""
     # Device (and group) initialization outside the setup timer,
     # attributed on its own.
     t0 = time.perf_counter()
     mesh = None
     if ranks is not None:
-        n, rank, init_file = ranks
+        n, rank, local, init_file = ranks
         grid = prep.dist[2]
-        mesh = (make_row_mesh(n, rank, init_file, prep.platform)
-                if grid is None else
-                make_mesh_2d(*grid, rank, init_file, prep.platform))
+        meet = (init_file, prep.platform, args.coordinator, local)
+        mesh = (make_row_mesh(n, rank, *meet) if grid is None else
+                make_mesh_2d(*grid, rank, *meet))
         device = mesh.device
     else:
         device = torch.device(prep.platform)
@@ -478,7 +524,7 @@ def _run(args, prep: _Prepared, ranks: tuple | None = None) -> int:
 def _bench_and_report(args, prep: _Prepared, device, mesh,
                       backend_init_s: float) -> int:
     A, b = prep.A, prep.b
-    report = mesh is None or mesh.rank == 0
+    report = mesh is None or mesh.local_rank == 0
     t0 = time.perf_counter()
     try:
         if mesh is not None:
@@ -532,27 +578,30 @@ def _bench_and_report(args, prep: _Prepared, device, mesh,
 
 
 def _run_ranks(argv: list, args, prep: _Prepared) -> int:
-    """`--devices N`: this process is rank 0; ranks 1..N−1 are spawned
-    processes that run the same command line (`parallel/launch.py`). The
-    exit code is nonzero if any rank failed."""
+    """`--devices N`: this process is the first of its ranks (global rank
+    0 without `--coordinator`); its other ranks are spawned processes that
+    run the same command line (`parallel/launch.py`). The exit code is
+    nonzero if any of them failed."""
     from lsbench_tpu_torch.parallel import launch
 
     n = args.devices
+    offset, local = _local_ranks(args)
     threads = torch.get_num_threads()
-    with launch.rendezvous() as init_file:
-        procs = launch.spawn_cli_ranks(argv, n, init_file)
+    with (contextlib.nullcontext() if args.coordinator
+          else launch.rendezvous()) as init_file:
+        procs = launch.spawn_cli_ranks(argv, n, init_file, offset, local)
         rc = 1
         try:
             # The ranks share the host's cores (and spin while they wait).
-            torch.set_num_threads(launch.threads_per_rank(n))
-            rc = _run(args, prep, (n, 0, init_file))
+            torch.set_num_threads(launch.threads_per_rank(local))
+            rc = _run(args, prep, (n, offset, 0, init_file))
         finally:
             torch.set_num_threads(threads)
             # A rank that failed leaves the others waiting in a collective
             # until the group's timeout: stop them at once.
             codes = launch.stop(procs, GROUP_TIMEOUT_S + 30 if rc == 0
                                 else 0)
-    failed = [(r + 1, c) for r, c in enumerate(codes) if c != 0]
+    failed = [(offset + r + 1, c) for r, c in enumerate(codes) if c != 0]
     for rank, code in failed:
         print(f"--devices {n}: rank {rank} "
               + ("did not finish" if code is None else f"exited {code}"),
@@ -560,15 +609,18 @@ def _run_ranks(argv: list, args, prep: _Prepared) -> int:
     return rc or (1 if failed else 0)
 
 
-def run_rank(argv: list, rank: int, n: int, init_file: str) -> int:
-    """Rank `rank` ≥ 1 of `--devices n`: the command line as rank 0 ran
-    it (rank 0 printed its messages), in the group of `init_file`."""
+def run_rank(argv: list, rank: int, local_rank: int, n: int,
+             init_file: str | None) -> int:
+    """Global rank `rank` of `--devices n`, the `local_rank`-th (≥ 1) of
+    its process: the command line as the process's first rank ran it
+    (which printed its messages), in the group of `init_file` or of
+    `--coordinator`."""
     args = build_parser().parse_args(argv)
     with contextlib.redirect_stderr(io.StringIO()):
         prep = _prepare(args)
     if isinstance(prep, int):
         return prep
-    return _run(args, prep, (n, rank, init_file))
+    return _run(args, prep, (n, rank, local_rank, init_file))
 
 
 def main(argv=None) -> int:

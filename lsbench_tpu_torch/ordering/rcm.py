@@ -133,3 +133,9 @@ def rcm_ordering(A: CsrMatrix) -> np.ndarray:
     assert pos == n
     return out[::-1].copy()  # reverse CM
 
+
+def bandwidth(A: CsrMatrix) -> int:
+    """max |i − j| over the stored entries (0 for an empty matrix): how far
+    a row's couplings reach, the width RCM minimizes."""
+    r, c, _ = A.to_coo()
+    return int(np.abs(r - c).max()) if A.nnz else 0

@@ -1,12 +1,15 @@
 """Start the ranks of a distributed run, one process each.
 
 A run of N ranks is N processes that join one group (`mesh.make_row_mesh`)
-through a FileStore in a temporary directory. The CLI's `--devices N`
-runs rank 0 in the calling process and starts ranks 1..N−1 here, each a
+through a FileStore in a temporary directory, or, across processes
+started apart (`--coordinator`), through a TCPStore at the coordinator.
+The CLI's `--devices N` runs its process's first rank in the calling
+process and starts the process's other ranks here, each a
 `torch.multiprocessing` process of start method `spawn` whose entry
 point, `cli_rank`, lives in this package. `run_ranks` runs a function on
-N spawned ranks and returns what each returned (the tests run their ranks
-so).
+N spawned ranks, or on one process's share of a coordinator group, and
+returns what each returned (the tests, the dry run and the scaling sweep
+run their ranks so).
 """
 
 from __future__ import annotations
@@ -36,13 +39,14 @@ def rendezvous():
         shutil.rmtree(d, ignore_errors=True)
 
 
-def cli_rank(argv: list, rank: int, n: int, init_file: str,
-             threads: int) -> None:
-    """Entry point of CLI rank `rank` ≥ 1: the CLI's run of `argv` as
-    that rank; the process exits with its return code."""
+def cli_rank(argv: list, rank: int, local_rank: int, n: int,
+             init_file: str | None, threads: int) -> None:
+    """Entry point of CLI global rank `rank`, the `local_rank`-th (≥ 1)
+    of its process: the CLI's run of `argv` as that rank; the process
+    exits with its return code."""
     torch.set_num_threads(threads)
     from lsbench_tpu_torch.harness.cli import run_rank
-    rc = run_rank(argv, rank, n, init_file)
+    rc = run_rank(argv, rank, local_rank, n, init_file)
     if rc:
         sys.exit(rc)
 
@@ -55,14 +59,19 @@ def threads_per_rank(n: int) -> int:
     return 1 if n > 1 else torch.get_num_threads()
 
 
-def spawn_cli_ranks(argv: list, n: int, init_file: str) -> list:
-    """Start CLI ranks 1..n−1 (rank 0 is the caller) and return their
+def spawn_cli_ranks(argv: list, n: int, init_file: str | None,
+                    offset: int = 0, local: int | None = None) -> list:
+    """Start this process's CLI ranks of a group of n but the first: its
+    `local` ranks (all n by default) are global ranks offset .. offset +
+    local − 1, the first of which is the caller. Returns their
     processes."""
+    local = n if local is None else local
     ctx = mp.get_context("spawn")
-    threads = threads_per_rank(n)
+    threads = threads_per_rank(local)
     procs = [ctx.Process(target=cli_rank,
-                         args=(list(argv), rank, n, init_file, threads))
-             for rank in range(1, n)]
+                         args=(list(argv), offset + lr, lr, n, init_file,
+                               threads))
+             for lr in range(1, local)]
     for p in procs:
         p.start()
     return procs
@@ -84,10 +93,12 @@ def stop(procs: list, timeout: float) -> list:
     return codes
 
 
-def _run_rank(fn, args, rank, n, init_file, platform, results) -> None:
+def _run_rank(fn, args, rank, local, n, init_file, coordinator, platform,
+              results) -> None:
     torch.set_num_threads(1)
     try:
-        with make_row_mesh(n, rank, init_file, platform) as mesh:
+        with make_row_mesh(n, rank, init_file, platform, coordinator,
+                           local) as mesh:
             out = fn(mesh, *args)
         results.put((rank, True, out))
     except BaseException:
@@ -96,35 +107,45 @@ def _run_rank(fn, args, rank, n, init_file, platform, results) -> None:
 
 
 def run_ranks(n: int, fn, *args, platform: str = "cpu",
-              timeout: float = 3 * GROUP_TIMEOUT_S) -> list:
+              timeout: float = 3 * GROUP_TIMEOUT_S,
+              coordinator: str | None = None, first: int = 0,
+              local: int | None = None) -> list:
     """Run `fn(mesh, *args)` on n ranks, each a spawned process, and
-    return the n results in rank order. `fn` must be importable by name
-    and its results picklable. Raises RuntimeError with the traceback of
-    the first rank that fails, and TimeoutError when the ranks have not
-    all answered within `timeout` seconds; no process outlives the call."""
+    return the results in rank order. `fn` must be importable by name and
+    its results picklable. Raises RuntimeError with the traceback of the
+    first rank that fails, and TimeoutError when the ranks have not all
+    answered within `timeout` seconds; no process outlives the call.
+
+    By default all n ranks run here and meet through a FileStore. With
+    `coordinator` ("host:port") this process runs only its `local` ranks,
+    global ranks first .. first + local − 1 on its cards 0..local−1, and
+    they meet the other processes' ranks at the coordinator (global rank 0
+    serves it); the results are those of its own ranks."""
+    local = n if local is None else local
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    with rendezvous() as init_file:
+    with (contextlib.nullcontext() if coordinator
+          else rendezvous()) as init_file:
         procs = [ctx.Process(target=_run_rank,
-                             args=(fn, args, rank, n, init_file, platform,
-                                   results))
-                 for rank in range(n)]
+                             args=(fn, args, first + lr, lr, n, init_file,
+                                   coordinator, platform, results))
+                 for lr in range(local)]
         for p in procs:
             p.start()
         out = {}
         try:
             deadline = time.monotonic() + timeout
-            while len(out) < n:
+            while len(out) < local:
                 try:  # drain before joining: a writer blocks until read
                     rank, ok, value = results.get(
                         timeout=max(0.1, deadline - time.monotonic()))
                 except queue_mod.Empty:
                     raise TimeoutError(
-                        f"{n - len(out)} of {n} ranks did not answer "
-                        f"within {timeout} s") from None
+                        f"{local - len(out)} of {local} ranks did not "
+                        f"answer within {timeout} s") from None
                 if not ok:
                     raise RuntimeError(f"rank {rank} failed:\n{value}")
                 out[rank] = value
         finally:
-            stop(procs, timeout=30 if len(out) == n else 0)
-    return [out[r] for r in range(n)]
+            stop(procs, timeout=30 if len(out) == local else 0)
+    return [out[first + lr] for lr in range(local)]

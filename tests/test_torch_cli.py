@@ -276,7 +276,7 @@ def test_missing_or_malformed_file(tmp_path, capsys, content):
     ["--solver", "hypre", "--devices", "2", "--mesh", "1x2"],
     ["--mesh", "2x4", "--devices", "4", "--solver", "cg"],
     ["--solver", "hypre", "--nrhs", "2"],
-    ["--coordinator", "localhost:1234"],
+    ["--coordinator", "nohost"],
     ["--platform", "tpu"],
 ])
 def test_unported_flags_exit_1(tiny_matrix_file, capsys, flags):
@@ -288,7 +288,8 @@ def test_unported_flags_exit_1(tiny_matrix_file, capsys, flags):
     # refused as by the JAX CLI (test_block_cg.py::test_cli_nrhs_rejects_non_cg);
     # so are a --mesh solver outside the 2-D family and a grid whose size
     # is not --devices (the JAX CLI's messages).
-    assert ("not yet ported" in err or "Unsupported platform" in err
+    assert ("coordinator must be 'host:port'" in err
+            or "Unsupported platform" in err
             or "--nrhs > 1 is implemented for" in err
             or "--mesh RxC supports" in err
             or "--mesh 2x4 needs 8 devices but --devices=4" in err)

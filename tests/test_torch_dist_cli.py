@@ -13,7 +13,8 @@ preset, ordering); `hypre`, `paralmond` and `cg_ir --precond
 amg_classical` at `--devices 2`, and `cg_ir`, `cg --nrhs 4` and `cg
 --precond amg` at `--devices 4 --mesh 2x2`, run end to end on gloo ranks
 and print the JAX CLI's CSV fields, iterations, levels and passes (the IR
-routes to true_relres ≤ 1e-10). The refusals exit 1: `--coordinator`, the
+routes to true_relres ≤ 1e-10). The refusals exit 1: `--coordinator
+nohost` (the JAX message; `--coordinator` itself is ported), the
 three `--mesh` refusals with the JAX CLI's messages (a solver outside the
 2-D family, a grid whose size is not `--devices`, fp64 `gmres`), a solver
 with no distributed form, a shard that cannot be built, and `--devices 2`
@@ -93,7 +94,7 @@ def test_devices_cli_matches_jax_cli(matrix_files, capsys, case, D):
 @pytest.mark.parametrize("flags,message", [
     (["--mesh", "2x2", "--devices", "4", "--solver", "hypre"],
      "--mesh RxC supports cg/gmres/bicgstab/ginkgo"),
-    (["--coordinator", "localhost:1234"], "not yet ported"),
+    (["--coordinator", "nohost"], "coordinator must be 'host:port'"),
     (["--mesh", "2x2", "--devices", "2", "--solver", "cg"],
      "--mesh 2x2 needs 4 devices but --devices=2"),
     (["--mesh", "2x2", "--devices", "4", "--solver", "gmres"],

@@ -19,13 +19,14 @@ from lsbench_tpu.ordering.amd import amd_ordering as j_amd
 from lsbench_tpu.ordering.amd import min_degree_graph as j_min_degree_graph
 from lsbench_tpu.ordering.nd import nd_ordering as j_nd
 from lsbench_tpu.ordering.rcm import _symmetrized_graph as j_graph
+from lsbench_tpu.ordering.rcm import bandwidth as j_bandwidth
 
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
 from lsbench_tpu_torch.native import mindeg
 from lsbench_tpu_torch.ordering import get_ordering
 from lsbench_tpu_torch.ordering.amd import amd_ordering, min_degree_graph
 from lsbench_tpu_torch.ordering.nd import nd_ordering
-from lsbench_tpu_torch.ordering.rcm import _symmetrized_graph
+from lsbench_tpu_torch.ordering.rcm import _symmetrized_graph, bandwidth
 
 MATRICES = {
     "poisson_2d(24)": lambda: j_poisson_2d(24),
@@ -72,6 +73,23 @@ def test_ordering_bitwise_equals_jax(name, method):
     p = port_fn(A, g)
     assert _is_perm(p, A.nrows)
     np.testing.assert_array_equal(p, jax_fn(JA, jg))
+
+
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_bandwidth_equals_jax(name):
+    """`rcm.bandwidth` is the JAX function's max |i − j|, before and after
+    RCM (which narrows the random matrix's), and 0 for a matrix with no
+    entries."""
+    JA = MATRICES[name]()
+    A = _port_csr(JA)
+    p = get_ordering("rcm", A)
+    for mine, theirs in ((A, JA), (A.permuted(p), JA.permuted(p))):
+        assert bandwidth(mine) == j_bandwidth(theirs)
+    if name.startswith("random"):
+        assert bandwidth(A.permuted(p)) < bandwidth(A)
+    empty = CsrMatrix(3, 3, np.zeros(4, np.int64), np.zeros(0, np.int32),
+                      np.zeros(0))
+    assert bandwidth(empty) == 0
 
 
 @pytest.mark.parametrize("name", sorted(MATRICES))
