@@ -43,6 +43,7 @@ import torch
 from lsbench_tpu_torch.matrix.bsr import BC, BR, GPS
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
 from lsbench_tpu_torch.ops.interp_well import TR, WindowEll, spmv_well
+from lsbench_tpu_torch.ops.launches import host_read, span
 from lsbench_tpu_torch.ops.spgemm import rap, spgemm
 from lsbench_tpu_torch.ordering.rcm import rcm_ordering
 from lsbench_tpu_torch.solvers.base import SolveResult, Solver, register_solver
@@ -670,8 +671,11 @@ def make_vcycle(level_aps, opts: AmgOptions, dtype) -> Callable:
     products and triangular solves stay out of TF32."""
 
     def coarse_solve(coarse_L, b):
-        y = torch.linalg.solve_triangular(coarse_L, b[:, None], upper=False)
-        return torch.linalg.solve_triangular(coarse_L.mT, y, upper=True)[:, 0]
+        with span("lsbench.amg.coarse"):
+            y = torch.linalg.solve_triangular(coarse_L, b[:, None],
+                                              upper=False)
+            return torch.linalg.solve_triangular(coarse_L.mT, y,
+                                                 upper=True)[:, 0]
 
     def jacobi_smooth(ap, L, b, x):
         om = opts.jacobi_scale / ap["rho"]
@@ -729,6 +733,7 @@ def make_vcycle(level_aps, opts: AmgOptions, dtype) -> Callable:
               "l1_jacobi": l1_jacobi_smooth,
               "l1_gs": l1_gs_smooth}[opts.smoother]
     nlev = len(level_aps)
+    level_spans = tuple(f"lsbench.amg.level{lvl}" for lvl in range(nlev))
 
     def coarse_correct(levels, coarse_L, lvl: int, rc):
         """Approximate solve of A_lvl e = rc by one cycle (V) or two Krylov
@@ -757,15 +762,16 @@ def make_vcycle(level_aps, opts: AmgOptions, dtype) -> Callable:
         if lvl == nlev:
             return coarse_solve(coarse_L, b)
         ap, L = level_aps[lvl], levels[lvl]
-        for _ in range(opts.pre_sweeps):
-            x = smooth(ap, L, b, x)
-        r = b - ap["a"](L["a"], x)
-        rc = ap["r"](L["r"], r)
-        ec = coarse_correct(levels, coarse_L, lvl + 1, rc)
-        x = x + ap["p"](L["p"], ec)
-        for _ in range(opts.post_sweeps):
-            x = smooth(ap, L, b, x)
-        return x
+        with span(level_spans[lvl]):
+            for _ in range(opts.pre_sweeps):
+                x = smooth(ap, L, b, x)
+            r = b - ap["a"](L["a"], x)
+            rc = ap["r"](L["r"], r)
+            ec = coarse_correct(levels, coarse_L, lvl + 1, rc)
+            x = x + ap["p"](L["p"], ec)
+            for _ in range(opts.post_sweeps):
+                x = smooth(ap, L, b, x)
+            return x
 
     def vcycle(level_params, coarse_L, b, x0):
         return cycle(level_params, coarse_L, 0, b.to(dtype), x0.to(dtype))
@@ -868,7 +874,7 @@ class AmgSolver(Solver):
         bb = torch.dot(b, b)
         tol2 = (self.rtol ** 2) * bb
         x, r, rr, it = torch.zeros_like(b), b, bb, 0
-        while it < self.maxiter and bool(rr > tol2):
+        while it < self.maxiter and host_read(rr > tol2):
             scale = torch.sqrt(rr)
             safe = torch.where(scale > 0, scale, 1.0)
             r32 = r.to(torch.float32) * (1.0 / safe).to(torch.float32)
@@ -884,7 +890,7 @@ class AmgSolver(Solver):
         bb = torch.dot(b, b)
         tol2 = (self.rtol ** 2) * bb
         x, rr, it = torch.zeros_like(b), bb, 0
-        while it < self.maxiter and bool(rr > tol2):
+        while it < self.maxiter and host_read(rr > tol2):
             x = self._cycle(b, x)
             r = b - self._fine_mv(x)
             rr = torch.dot(r, r)
@@ -947,13 +953,14 @@ def amg_precond(A: CsrMatrix, dtype, device, breakdown: dict | None = None,
     vcycle = make_vcycle(level_aps, opts, dtype)
 
     def apply(state, r):
-        lv, cL = state
-        if perm is not None:
-            r = r[perm]
-        with full_f32():
-            z = vcycle(lv, cL, r, torch.zeros_like(r))
-        if inv is not None:
-            z = z[inv]
-        return z
+        with span("lsbench.amg.vcycle"):
+            lv, cL = state
+            if perm is not None:
+                r = r[perm]
+            with full_f32():
+                z = vcycle(lv, cL, r, torch.zeros_like(r))
+            if inv is not None:
+                z = z[inv]
+            return z
 
     return (level_params, coarse_L), apply

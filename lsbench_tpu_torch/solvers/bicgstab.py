@@ -33,6 +33,7 @@ import sys
 import torch
 
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
+from lsbench_tpu_torch.ops.launches import host_read
 from lsbench_tpu_torch.solvers.base import SolveResult, Solver, register_solver
 from lsbench_tpu_torch.solvers.cg import CgSolver, as_dtype
 
@@ -74,7 +75,7 @@ def batched_bicgstab_loop(matmat, pc_cols, B, rtol, maxiter, dtype):
     rr = rr0
     brk = torch.zeros((k,), dtype=torch.bool, device=B.device)
     it = 0
-    while it < maxiter and bool(((rr > tol2) & ~brk).any()):
+    while it < maxiter and host_read(((rr > tol2) & ~brk).any()):
         active = (rr > tol2) & ~brk
         rho_new = _cdots(R0, R)
         # Shadow restart (see the module docstring): r̂0 = r, p = r.

@@ -33,6 +33,7 @@ import torch
 
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
 from lsbench_tpu_torch.matrix.sell import SellMatrix
+from lsbench_tpu_torch.ops.launches import host_read
 from lsbench_tpu_torch.ops.spmv_sell import spmm_sell
 from lsbench_tpu_torch.solvers.base import SolveResult, Solver, register_solver
 from lsbench_tpu_torch.solvers.cg import full_f32, permutation
@@ -99,7 +100,8 @@ def block_cg_shared_loop(matmat, ihalf, B, rtol, maxiter, dtype,
         Y = torch.zeros_like(Bt)
         D = Q
         it = 0
-        while it < maxiter and bool(((rho * rho).sum(dim=0) > tol2).any()):
+        while it < maxiter and host_read(((rho * rho).sum(dim=0)
+                                          > tol2).any()):
             Z = matmat(D * ih) * ih
             M = D.T @ Z
             # Symmetrized, as jnp.linalg.eigh does by default.
@@ -130,7 +132,7 @@ def block_cg_loop(matmat, pc_cols, B, rtol, maxiter, dtype):
     P = Z = pc_cols(R)
     rz, rr = _cdots(R, Z), _cdots(R, R)
     it = 0
-    while it < maxiter and bool((rr > tol2).any()):
+    while it < maxiter and host_read((rr > tol2).any()):
         active = rr > tol2
         Q = matmat(P)
         pq = _cdots(P, Q)
@@ -212,7 +214,7 @@ class MultiRhsIrSolver(Solver):
         X = torch.zeros_like(Bp)
         R, rr = Bp, bnorm2
         iters = passes = 0
-        while passes < self.max_refine and bool((rr > tol2).any()):
+        while passes < self.max_refine and host_read((rr > tol2).any()):
             scale = torch.sqrt(rr)
             safe = torch.where(scale > 0, scale, 1.0)
             R32 = R.to(torch.float32) * (1.0 / safe).to(torch.float32)[None, :]

@@ -2,11 +2,12 @@
 
 The iteration is the JAX package's `cg_loop` — same state, same update
 order, same stop rule (`it < maxiter and rr > tol2`) — written as a Python
-loop. The stop test reads `rr` on the host, which synchronizes with the
-device once per iteration; capturing the loop body in a CUDA graph to
-remove that sync is a later step (ROADMAP). `build_matvec` gives the SpMV
-of each layout, after an optional reordering: the sliced-ELL kernels that
-replace K1 and K5 (f32) and K2 (f64) on the solver paths
+loop. The stop test reads `rr` on the host (`host_read`), which
+synchronizes with the device once per iteration; capturing the loop body
+in a CUDA graph to remove that sync is a later step (ROADMAP). The body
+is the span `lsbench.cg.iter` (`ops/launches.py`). `build_matvec` gives
+the SpMV of each layout, after an optional reordering: the sliced-ELL
+kernels that replace K1 and K5 (f32) and K2 (f64) on the solver paths
 (`ops/spmv_sell.py`), and the JAX package's XLA-only layouts as plain
 torch ops: `ell` (`ops/spmv.py`), `bsr_xla` (`BsrMatrix.matvec_xla`) and
 `dense`. The BSR kernels K1, K5 and K2 stay on the ops API
@@ -24,6 +25,7 @@ from lsbench_tpu_torch.matrix.bsr import BsrMatrix
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
 from lsbench_tpu_torch.matrix.ell import EllMatrix
 from lsbench_tpu_torch.matrix.sell import SellMatrix
+from lsbench_tpu_torch.ops.launches import host_read, span
 from lsbench_tpu_torch.ops.spmv import spmv_ell
 from lsbench_tpu_torch.ops.spmv_sell import spmv_sell, spmv_sell_f64
 from lsbench_tpu_torch.ordering import get_ordering
@@ -55,16 +57,17 @@ def cg_loop(matvec, precond_apply, b, rtol, maxiter, dtype):
     p = z
     rz, rr = torch.dot(r, z), torch.dot(r, r)
     it = 0
-    while it < maxiter and bool(rr > tol2):
-        Ap = matvec(p)
-        alpha = rz / torch.dot(p, Ap)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = precond_apply(r)
-        rz_new, rr = torch.dot(r, z), torch.dot(r, r)
-        beta = rz_new / rz
-        p = z + beta * p
-        rz = rz_new
+    while it < maxiter and host_read(rr > tol2):
+        with span("lsbench.cg.iter"):
+            Ap = matvec(p)
+            alpha = rz / torch.dot(p, Ap)
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = precond_apply(r)
+            rz_new, rr = torch.dot(r, z), torch.dot(r, r)
+            beta = rz_new / rz
+            p = z + beta * p
+            rz = rz_new
         it += 1
     return x, it, torch.sqrt(rr), bnorm
 

@@ -33,6 +33,7 @@ import sys
 import torch
 
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
+from lsbench_tpu_torch.ops.launches import host_read
 from lsbench_tpu_torch.solvers.base import SolveResult, Solver, register_solver
 from lsbench_tpu_torch.solvers.cg import CgSolver, as_dtype
 from lsbench_tpu_torch.utils.precision import full_f32
@@ -48,7 +49,7 @@ def gmres_loop(matvec, precond_apply, b, rtol, max_restarts, m, dtype):
     n = b.shape[0]
     dev = b.device
     bnorm = torch.sqrt(torch.dot(b, b))
-    tol = float(rtol * bnorm)  # in `dtype`, as the JAX loop compares
+    tol = host_read(rtol * bnorm)  # in `dtype`, as the JAX loop compares
 
     def arnoldi_cycle(x):
         r = b - matvec(x)
@@ -84,7 +85,7 @@ def gmres_loop(matvec, precond_apply, b, rtol, max_restarts, m, dtype):
 
     x = torch.zeros_like(b)
     rnorm = bnorm
-    rn, rn_prev = float(rnorm), float("inf")
+    rn, rn_prev = host_read(rnorm), float("inf")
     restarts = 0
     # The JAX package's stop rule, plus the port's stagnation stop: the
     # loop also ends after a cycle that did not lower ‖r‖ (module
@@ -94,7 +95,7 @@ def gmres_loop(matvec, precond_apply, b, rtol, max_restarts, m, dtype):
         x = arnoldi_cycle(x)
         r = b - matvec(x)
         rnorm = torch.sqrt(torch.dot(r, r))
-        rn = float(rnorm)
+        rn = host_read(rnorm)
         restarts += 1
     return x, restarts * m, rnorm, bnorm
 

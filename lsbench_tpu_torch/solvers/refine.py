@@ -22,6 +22,7 @@ import torch
 
 from lsbench_tpu_torch.matrix.csr import CsrMatrix
 from lsbench_tpu_torch.matrix.sell import SellMatrix
+from lsbench_tpu_torch.ops.launches import host_read, span
 from lsbench_tpu_torch.ops.spmv_sell import spmv_sell_f64
 from lsbench_tpu_torch.solvers.base import SolveResult, Solver, register_solver
 from lsbench_tpu_torch.solvers.bicgstab import bicgstab_loop
@@ -148,26 +149,28 @@ class KrylovIrSolver(Solver):
         r = bp
         rr = torch.dot(bp, bp)
         iters = passes = 0
-        while passes < self.max_refine and bool(rr > tol2):
-            # Scale for f32 range safety, solve A d ≈ r in f32; only the
-            # residual and the x update stay f64. The f64 residual is
-            # carried: one f64 SpMV per pass.
-            scale = torch.sqrt(rr)
-            safe = torch.where(scale > 0, scale, 1.0)
-            rhs32 = r.to(torch.float32) * (1.0 / safe).to(torch.float32)
-            d32, inner_iters = self._inner_loop(self._mv, self._pc, rhs32)
-            # A non-finite correction (inner breakdown) must not poison x:
-            # drop it and let the pass cap end the loop.
-            d32 = torch.where(torch.isfinite(d32), d32, 0.0)
-            x = x + (d32 * safe.to(torch.float32)).to(torch.float64)
-            r = bp - self._resid_mv(x)
-            rr = torch.dot(r, r)
+        while passes < self.max_refine and host_read(rr > tol2):
+            with span("lsbench.ir.pass"):
+                # Scale for f32 range safety, solve A d ≈ r in f32; only
+                # the residual and the x update stay f64. The f64 residual
+                # is carried: one f64 SpMV per pass.
+                scale = torch.sqrt(rr)
+                safe = torch.where(scale > 0, scale, 1.0)
+                rhs32 = r.to(torch.float32) * (1.0 / safe).to(torch.float32)
+                d32, inner_iters = self._inner_loop(self._mv, self._pc,
+                                                    rhs32)
+                # A non-finite correction (inner breakdown) must not
+                # poison x: drop it and let the pass cap end the loop.
+                d32 = torch.where(torch.isfinite(d32), d32, 0.0)
+                x = x + (d32 * safe.to(torch.float32)).to(torch.float64)
+                r = bp - self._resid_mv(x)
+                rr = torch.dot(r, r)
             iters += inner_iters
             passes += 1
         check_precond(self._pstate)
         if self._inv is not None:
             x = x[self._inv]
-        rnorm, bnorm = float(torch.sqrt(rr)), float(bnorm)
+        rnorm, bnorm = host_read(torch.sqrt(rr)), host_read(bnorm)
         relres = rnorm / bnorm if bnorm > 0 else 0.0
         return SolveResult(x=x, iters=iters, relres=relres,
                            converged=relres <= self.rtol or bnorm == 0.0,
