@@ -27,6 +27,18 @@ kin, `solvers/refine.py`), `lsbench.cg.iter` (one iteration body of
 `lsbench.amg.vcycle` (one AMG preconditioner apply), inside it
 `lsbench.amg.level<l>` (level l of the cycle, nested as the recursion
 nests) and `lsbench.amg.coarse` (the dense coarse solve).
+
+CUDA graphs (`solvers/cg.py::CgGraphs`): a wrapper counts its launch while
+a graph is captured, but the kernel runs only when the graph is replayed.
+So `take_back` sets the counts back after a capture and keeps what it
+added, and `replayed` adds that again on every replay: the counts stay
+the launches that ran. Inside a replayed graph the spans and host reads
+ran at capture only. While a session records, the graphs also add to:
+
+  graph_captures          graphs captured
+  graph_replays:<name>    replays of graph <name> (`lsbench.cg.start`,
+                          `lsbench.cg.iter`)
+  graph_fallbacks         captures that raised (that loop then runs eager)
 """
 
 from __future__ import annotations
@@ -93,6 +105,37 @@ def span(name: str):
     if not _profiler._is_profiler_enabled:
         return _NO_SPAN
     return _Span(name)
+
+
+def count(key: str) -> None:
+    """Add one to `key` while a profiler session records."""
+    if _profiler._is_profiler_enabled:
+        _add(key, 1)
+
+
+def take_back(before: dict) -> tuple:
+    """Set each kernel's launch count back to its value in `before` (a
+    `read()`) and return what was added since, as (counts, key, launches)
+    triples: the launches of a CUDA graph's capture, which run only when
+    the graph is replayed."""
+    delta = []
+    for m in _MODULES:
+        for key, v in m.LAUNCHES.items():
+            was = before.get(key, 0)
+            if v != was:
+                delta.append((m.LAUNCHES, key, v - was))
+                m.LAUNCHES[key] = was
+    return tuple(delta)
+
+
+def replayed(key: str, delta: tuple) -> None:
+    """Count one replay of a graph whose capture launched `delta`
+    (`take_back`): each kernel's count gains its launches, and while a
+    profiler session records, `key` (`graph_replays:<name>`) gains one."""
+    for counts, name, n in delta:
+        counts[name] += n
+    if _profiler._is_profiler_enabled:
+        _add(key, 1)
 
 
 def host_read(t):

@@ -26,8 +26,9 @@ from lsbench_tpu_torch.ops.launches import host_read, span
 from lsbench_tpu_torch.ops.spmv_sell import spmv_sell_f64
 from lsbench_tpu_torch.solvers.base import SolveResult, Solver, register_solver
 from lsbench_tpu_torch.solvers.bicgstab import bicgstab_loop
-from lsbench_tpu_torch.solvers.cg import (build_matvec, cg_loop, permutation,
-                                          resolve_layout)
+from lsbench_tpu_torch.solvers.cg import (CgGraphs, build_matvec, cg_loop,
+                                          permutation, resolve_layout,
+                                          solving)
 from lsbench_tpu_torch.solvers.gmres import gmres_loop, max_restarts_for
 from lsbench_tpu_torch.solvers.preconditioners import (check as check_precond,
                                                        build as build_precond)
@@ -102,8 +103,12 @@ class KrylovIrSolver(Solver):
     """f32 inner Krylov solve + f64 residual refinement.
 
     Subclasses provide `_inner_loop(mv32, pc, rhs32) -> (d32, iters)`: an
-    f32 solve of A d ≈ rhs32 to `inner_rtol`.
+    f32 solve of A d ≈ rhs32 to `inner_rtol`. One whose inner loop is
+    `cg_loop` holds the loop's `_graphs` (`CgGraphs`), and its set-up and
+    each solve run in their `solving`.
     """
+
+    _graphs: CgGraphs | None = None
 
     def __init__(self, A: CsrMatrix, rtol=1e-10, inner_rtol=1e-5,
                  maxiter=None, max_refine=6, precond="jacobi",
@@ -118,59 +123,63 @@ class KrylovIrSolver(Solver):
         self.max_refine = int(max_refine)
         self.layout = resolve_layout(layout, torch.float32)
 
-        t0 = time.perf_counter()
-        Ap, self._perm, self._inv = permutation(ordering, A, self.device)
-        self.setup_breakdown["ordering_s"] = time.perf_counter() - t0
+        with solving(self._graphs, self.device):
+            t0 = time.perf_counter()
+            Ap, self._perm, self._inv = permutation(ordering, A, self.device)
+            self.setup_breakdown["ordering_s"] = time.perf_counter() - t0
 
-        t0 = time.perf_counter()
-        apply32, self._op = build_matvec(Ap, self.layout, self.device)
-        self._mv = lambda v: apply32(self._op, v)
-        self.stream_bytes = getattr(self._op, "bytes_streamed", None)
-        self._resid_mv = f64_residual_matvec(Ap, self._op, self.device)
-        self.setup_breakdown["layout_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            apply32, self._op = build_matvec(Ap, self.layout, self.device)
+            self._mv = lambda v: apply32(self._op, v)
+            self.stream_bytes = getattr(self._op, "bytes_streamed", None)
+            self._resid_mv = f64_residual_matvec(Ap, self._op, self.device)
+            self.setup_breakdown["layout_s"] = time.perf_counter() - t0
 
-        t0 = time.perf_counter()
-        self._pstate, papply = build_precond(
-            precond, Ap, torch.float32, self.device, precond_params,
-            self.setup_breakdown)
-        self._pc = lambda r: papply(self._pstate, r)
-        self.setup_breakdown["precond_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            self._pstate, papply = build_precond(
+                precond, Ap, torch.float32, self.device, precond_params,
+                self.setup_breakdown)
+            self._pc = lambda r: papply(self._pstate, r)
+            self.setup_breakdown["precond_s"] = time.perf_counter() - t0
 
     def _inner_loop(self, mv32, pc, rhs32):
         raise NotImplementedError
 
     def solve(self, b) -> SolveResult:
         b = torch.as_tensor(b, device=self.device).to(torch.float64)
-        bp = b if self._perm is None else b[self._perm]
-        bnorm = torch.sqrt(torch.dot(bp, bp))
-        tol2 = (self.rtol * bnorm) ** 2
+        with solving(self._graphs, self.device) as keep:
+            bp = b if self._perm is None else b[self._perm]
+            bnorm = torch.sqrt(torch.dot(bp, bp))
+            tol2 = (self.rtol * bnorm) ** 2
 
-        x = torch.zeros_like(bp)
-        r = bp
-        rr = torch.dot(bp, bp)
-        iters = passes = 0
-        while passes < self.max_refine and host_read(rr > tol2):
-            with span("lsbench.ir.pass"):
-                # Scale for f32 range safety, solve A d ≈ r in f32; only
-                # the residual and the x update stay f64. The f64 residual
-                # is carried: one f64 SpMV per pass.
-                scale = torch.sqrt(rr)
-                safe = torch.where(scale > 0, scale, 1.0)
-                rhs32 = r.to(torch.float32) * (1.0 / safe).to(torch.float32)
-                d32, inner_iters = self._inner_loop(self._mv, self._pc,
-                                                    rhs32)
-                # A non-finite correction (inner breakdown) must not
-                # poison x: drop it and let the pass cap end the loop.
-                d32 = torch.where(torch.isfinite(d32), d32, 0.0)
-                x = x + (d32 * safe.to(torch.float32)).to(torch.float64)
-                r = bp - self._resid_mv(x)
-                rr = torch.dot(r, r)
-            iters += inner_iters
-            passes += 1
-        check_precond(self._pstate)
-        if self._inv is not None:
-            x = x[self._inv]
-        rnorm, bnorm = host_read(torch.sqrt(rr)), host_read(bnorm)
+            x = torch.zeros_like(bp)
+            r = bp
+            rr = torch.dot(bp, bp)
+            iters = passes = 0
+            while passes < self.max_refine and host_read(rr > tol2):
+                with span("lsbench.ir.pass"):
+                    # Scale for f32 range safety, solve A d ≈ r in f32;
+                    # only the residual and the x update stay f64. The f64
+                    # residual is carried: one f64 SpMV per pass.
+                    scale = torch.sqrt(rr)
+                    safe = torch.where(scale > 0, scale, 1.0)
+                    rhs32 = (r.to(torch.float32)
+                             * (1.0 / safe).to(torch.float32))
+                    d32, inner_iters = self._inner_loop(self._mv, self._pc,
+                                                        rhs32)
+                    # A non-finite correction (inner breakdown) must not
+                    # poison x: drop it and let the pass cap end the loop.
+                    d32 = torch.where(torch.isfinite(d32), d32, 0.0)
+                    x = x + (d32 * safe.to(torch.float32)).to(torch.float64)
+                    r = bp - self._resid_mv(x)
+                    rr = torch.dot(r, r)
+                iters += inner_iters
+                passes += 1
+            check_precond(self._pstate)
+            if self._inv is not None:
+                x = x[self._inv]
+            x = keep(x)
+            rnorm, bnorm = host_read(torch.sqrt(rr)), host_read(bnorm)
         relres = rnorm / bnorm if bnorm > 0 else 0.0
         return SolveResult(x=x, iters=iters, relres=relres,
                            converged=relres <= self.rtol or bnorm == 0.0,
@@ -181,9 +190,14 @@ class KrylovIrSolver(Solver):
 class CgIrSolver(KrylovIrSolver):
     """f32 CG inner solve + f64 residual refinement (SPD systems)."""
 
+    def __init__(self, A: CsrMatrix, **params):
+        self._graphs = CgGraphs()
+        super().__init__(A, **params)
+
     def _inner_loop(self, mv32, pc, rhs32):
         d32, inner_iters, _, _ = cg_loop(
-            mv32, pc, rhs32, self.inner_rtol, self.maxiter, torch.float32)
+            mv32, pc, rhs32, self.inner_rtol, self.maxiter, torch.float32,
+            graphs=self._graphs)
         return d32, inner_iters
 
 
