@@ -231,6 +231,20 @@ Phases, each of which raises (exit code 1) on failure:
    1`, the predicted efficiency at D = 2, 4, 8 from the sweep's time per
    iteration, printed as a model with its link parameters). Each new
    path prints its phase_s.
+20. The CG loop's if-node guard (`graph_if_guard_f32`, `graph_if_guard_f64`:
+   the guard kernel of `csrc/graph_if.cu`; run after phase 2): for each
+   dtype, one CUDA graph of 4 slots, each the guard and an if-node whose
+   body marks its slot and halves the value, captured as the block graph
+   of `solvers/cg.py::CgGraphs` is (the guard on a capturing stream, the
+   bodies on another), on 0-d card tensors: it, its limit (int64), the
+   value and its bound (f32 or f64). Replayed from the rows of the CPU
+   test of its plain version (it == limit, value == bound, a value or a
+   bound NaN, both 0, a stop inside the block), it must leave the count,
+   the slots marked and the value that `graph_if.go` applied slot by slot
+   gives; each capture counts 4 launches. Printed: the device time of
+   one slot, skipped and run (CUDA events over a replay, per slot), and
+   of the plain version's kernels. The cg_ir path of phase 3 must launch
+   the f32 guard.
 
 Each path's launch counts are read from counters set to 0 just before it.
 Beside each kernel's times the record carries the bound of its function
@@ -266,6 +280,10 @@ WELL_SOURCE = "lsbench_tpu_torch/csrc/well_spmv.cu"
 SELL_SOURCE = "lsbench_tpu_torch/csrc/sell_spmv.cu"
 SELL_SPMM_SOURCE = "lsbench_tpu_torch/csrc/sell_spmm.cu"
 TRI_SOURCE = "lsbench_tpu_torch/csrc/tri_sweep.cu"
+GRAPH_IF_SOURCE = "lsbench_tpu_torch/csrc/graph_if.cu"
+# The JAX package tests its CG loop's stop rule in `lax.while_loop`'s cond.
+GUARD_REPLACES = ("lsbench_tpu/solvers/cg.py:49 (lax.while_loop cond, "
+                  "no Pallas)")
 # The triangular sweep has no Pallas kernel: the JAX package scans it.
 TRI_REPLACES = ("lsbench_tpu/solvers/sparse_cholesky.py:342 (XLA lax.scan, "
                 "no Pallas)")
@@ -299,6 +317,9 @@ KERNELS = {
     # One sparse triangular sweep per launch: IC(0) and the level schedule.
     "tri_sweep_f32": ("tri_sweep_f32", TRI_SOURCE, TRI_REPLACES),
     "tri_sweep_f64": ("tri_sweep_f64", TRI_SOURCE, TRI_REPLACES),
+    # The guard of each if-node of the CG loop's block graph.
+    "graph_if_guard_f32": ("if_guard_f32", GRAPH_IF_SOURCE, GUARD_REPLACES),
+    "graph_if_guard_f64": ("if_guard_f64", GRAPH_IF_SOURCE, GUARD_REPLACES),
 }
 # The main-path runs whose launch counts the record lists, in order.
 PATHS = ("cg_ir --devices 1 poisson_2d(512)",
@@ -927,6 +948,111 @@ def spmm_cases(layouts, rng) -> dict:
     return result
 
 
+# (it, limit, value, bound) before a replay of the guard phase's graph.
+GUARD_ROWS = ((0, 5, 2.0, 1.0), (5, 5, 2.0, 1.0), (0, 5, 1.0, 1.0),
+              (4, 9, 0.5, 1.0), (0, 5, 0.0, 0.0), (0, 5, float("nan"), 1.0),
+              (0, 5, 2.0, float("nan")), (0, 9, 4.0, 1.0), (3, 5, 8.0, 1.0),
+              (0, 9, 1e6, 1.0))
+GUARD_SLOTS = 4
+
+
+def graph_if_phase() -> dict:
+    """The if-node guard on the card against its plain version
+    (`graph_if.go`) applied slot by slot: one graph of GUARD_SLOTS slots
+    for each dtype, replayed from each of GUARD_ROWS. Returns the
+    `measured` entries of both guard kernels."""
+    import torch
+
+    from lsbench_tpu_torch.ops import graph_if
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    for dt, name in ((torch.float32, "graph_if_guard_f32"),
+                     (torch.float64, "graph_if_guard_f64")):
+        counter = KERNELS[name][0]
+        it = torch.zeros((), dtype=torch.int64, device=dev)
+        limit = torch.zeros((), dtype=torch.int64, device=dev)
+        value = torch.zeros((), dtype=dt, device=dev)
+        tol = torch.zeros((), dtype=dt, device=dev)
+        ran = torch.zeros(GUARD_SLOTS, dtype=torch.int32, device=dev)
+        marks = [ran[j] for j in range(GUARD_SLOTS)]
+
+        def body(j):
+            marks[j].fill_(1)
+            value.mul_(0.5)
+        graph_if.load(dev)
+        body(0)                     # load the bodies' kernels
+        torch.cuda.synchronize(dev)
+        capturing, bodies = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+        pool = torch.cuda.MemPool()
+        graph = torch.cuda.CUDAGraph()
+        before = graph_if.LAUNCHES[counter]
+        with torch.cuda.stream(capturing):
+            graph.capture_begin()
+            for j in range(GUARD_SLOTS):
+                with graph_if.if_node(it, limit, value, tol, bodies, pool):
+                    body(j)
+            graph.capture_end()
+        check(graph_if.LAUNCHES[counter] - before == GUARD_SLOTS,
+              f"{name}: {graph_if.LAUNCHES[counter] - before} launches "
+              f"counted for {GUARD_SLOTS} guards captured")
+
+        def start(row):
+            i, m, v, b = row
+            it.fill_(i)
+            limit.fill_(m)
+            value.fill_(v)
+            tol.fill_(b)
+            ran.zero_()
+        for row in GUARD_ROWS:
+            start(row)
+            graph.replay()
+            torch.cuda.synchronize(dev)
+            got = (int(it), ran.tolist(), value.item())
+            start(row)              # the plain version, slot by slot
+            want_ran = []
+            for j in range(GUARD_SLOTS):
+                go = bool(graph_if.go(it, limit, value, tol))
+                if go:
+                    it.add_(1)
+                    value.mul_(0.5)
+                want_ran.append(int(go))
+            want = (int(it), want_ran, value.item())
+            check(got[:2] == want[:2] and (got[2] == want[2] or (
+                np.isnan(got[2]) and np.isnan(want[2]))),
+                  f"{name} {row}: the graph gave (it, slots run, value) "
+                  f"{got}, the plain version {want}")
+
+        def slot_ms(row, reps=20):
+            """Median CUDA-event time of a replay from `row`, a slot."""
+            times = []
+            for _ in range(reps + 1):
+                start(row)
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                graph.replay()
+                t1.record()
+                t1.synchronize()
+                times.append(t0.elapsed_time(t1))
+            return float(np.median(times[1:])) / GUARD_SLOTS
+        skipped = slot_ms((5, 5, 2.0, 1.0))     # every slot skipped
+        run = slot_ms((0, 9, 1e30, 1.0))        # every slot run
+        plain = median_ms(lambda: graph_if.go(it, limit, value, tol))
+        nbytes = 3 * 8 + 2 * value.element_size()   # it read and written
+        b_ms, b_by = bound(nbytes, 2, "f32" if dt == torch.float32 else "f64")
+        print(f"graph_if guard {name}: {len(GUARD_ROWS)} rows as the plain "
+              f"version; ms a slot skipped {skipped:.5f}, run "
+              f"(with its body's 2 kernels) {run:.5f}; plain version's "
+              f"kernels {plain:.5f} ms; bound {b_ms:.2e} ms ({b_by})")
+        out[name] = {"max_abs_err": 0.0, "ms": skipped, "plain_ms": plain,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                     "shape": f"0-d, {GUARD_SLOTS} slots a graph",
+                     "slot_run_ms": run}
+        del graph, pool
+    return out
+
+
 def main_path_phase(matrices) -> dict:
     """Run cg_ir through the port's CLI on each matrix, with `--roofline`
     (the harness phase checks it); return the launch counts of the whole
@@ -937,7 +1063,7 @@ def main_path_phase(matrices) -> dict:
     from lsbench_tpu_torch.harness.cli import main as cli_main
     from lsbench_tpu_torch.matrix.io import write_matrix
 
-    expect = ("sell_f32", "sell_f64")
+    expect = ("sell_f32", "sell_f64", "if_guard_f32")
     total = {}
     with tempfile.TemporaryDirectory() as tmp:
         for label, A in matrices.items():
@@ -3325,6 +3451,9 @@ def main() -> int:
     measured, bsr_api_counts = kernel_phase(matrices)
     print(f"phase kernels: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    measured.update(graph_if_phase())
+    print(f"phase graph_if guard: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     path_counts.append(main_path_phase(matrices))
     print(f"phase cg_ir paths: {time.perf_counter() - t0:.2f} s")
 
@@ -3417,6 +3546,7 @@ def main() -> int:
                                              "amg_level1_a",
                                              "sell_same_operator",
                                              "backward_ms", "apply_ms",
+                                             "slot_run_ms",
                                              "k8_ms", "k8_max_abs_err",
                                              "launches_per_sweep",
                                              "device_ms_profiler",

@@ -44,6 +44,10 @@ SOURCES = {
     "sell_spmm": (("lsb_spmm_sell_f32", 5, 2),),
     "tri_sweep": (("lsb_tri_sweep_f32", 16, 3),
                   ("lsb_tri_sweep_f64", 16, 3)),
+    "graph_if": (("lsb_graph_if_load", 0, 0),
+                 ("lsb_graph_if_f32", 5, 0),
+                 ("lsb_graph_if_f64", 5, 0),
+                 ("lsb_graph_if_end", 0, 0)),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

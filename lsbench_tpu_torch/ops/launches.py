@@ -6,7 +6,9 @@ a rank spawned for a distributed run counts its own.
 Kernel launches: each wrapper adds one to its count in its module's
 `LAUNCHES` where it launches its kernel on the card, and nowhere else (a
 CPU tensor runs the plain version, uncounted). Keys: `sell_f32`,
-`sell_f64`, ... (each module's `LAUNCHES`).
+`sell_f64`, ... (each module's `LAUNCHES`), and `if_guard_f32` and
+`if_guard_f64`, the guards of the CG block graph's if-nodes
+(`ops/graph_if.py`).
 
 Spans and host syncs record only while a `torch.profiler` session
 records in the process (`--profile-dir`, the benchmark's `--trace 1`).
@@ -23,7 +25,9 @@ records, a span is also a `record_function` in the trace (a
 
 The spans: `lsbench.ir.pass` (one refinement pass of `cg_ir` and its
 kin, `solvers/refine.py`), `lsbench.cg.iter` (one iteration body of
-`solvers/cg.py::cg_loop`, the stop test outside it),
+`solvers/cg.py::cg_loop`, the stop test outside it; where the loop runs
+as CUDA graphs, only where it cannot run in blocks), `lsbench.cg.block`
+(one block of the graphed loop's guarded iterations and its read),
 `lsbench.amg.vcycle` (one AMG preconditioner apply), inside it
 `lsbench.amg.level<l>` (level l of the cycle, nested as the recursion
 nests) and `lsbench.amg.coarse` (the dense coarse solve).
@@ -31,14 +35,21 @@ nests) and `lsbench.amg.coarse` (the dense coarse solve).
 CUDA graphs (`solvers/cg.py::CgGraphs`): a wrapper counts its launch while
 a graph is captured, but the kernel runs only when the graph is replayed.
 So `take_back` sets the counts back after a capture and keeps what it
-added, and `replayed` adds that again on every replay: the counts stay
-the launches that ran. Inside a replayed graph the spans and host reads
-ran at capture only. While a session records, the graphs also add to:
+added, and `replayed` adds that again for every replay: for a block
+graph, its bodies' kernels once for each guarded iteration that ran and
+its guards once a slot, run or skipped. The counts stay the launches
+that ran. Inside a replayed graph the spans and host reads ran at capture
+only. While a session records, the graphs also add to:
 
   graph_captures          graphs captured
   graph_replays:<name>    replays of graph <name> (`lsbench.cg.start`,
-                          `lsbench.cg.iter`)
-  graph_fallbacks         captures that raised (that loop then runs eager)
+                          `lsbench.cg.block`, `lsbench.cg.iter`)
+  graph_slots:lsbench.cg.block
+                          the guarded iterations replayed, run or
+                          skipped (the block's slots a replay)
+  graph_fallbacks         captures that raised (after the start's or an
+                          iteration's, that loop runs eager; after the
+                          block's, a graph an iteration)
 """
 
 from __future__ import annotations
@@ -48,9 +59,10 @@ from contextlib import nullcontext
 
 from torch.autograd import profiler as _profiler
 
-from lsbench_tpu_torch.ops import interp_well, spmv_bsr, spmv_sell, tri_sweep
+from lsbench_tpu_torch.ops import (graph_if, interp_well, spmv_bsr, spmv_sell,
+                                   tri_sweep)
 
-_MODULES = (spmv_bsr, interp_well, spmv_sell, tri_sweep)
+_MODULES = (spmv_bsr, interp_well, spmv_sell, tri_sweep, graph_if)
 _NO_SPAN = nullcontext()
 _TRACED: dict[str, int] = {}     # the span and sync keys recorded so far
 
@@ -107,10 +119,10 @@ def span(name: str):
     return _Span(name)
 
 
-def count(key: str) -> None:
-    """Add one to `key` while a profiler session records."""
+def count(key: str, n: int = 1) -> None:
+    """Add n to `key` while a profiler session records."""
     if _profiler._is_profiler_enabled:
-        _add(key, 1)
+        _add(key, n)
 
 
 def take_back(before: dict) -> tuple:
@@ -128,12 +140,16 @@ def take_back(before: dict) -> tuple:
     return tuple(delta)
 
 
-def replayed(key: str, delta: tuple) -> None:
+def replayed(key: str, delta: tuple, runs: int = 1, slots: int = 1
+             ) -> None:
     """Count one replay of a graph whose capture launched `delta`
-    (`take_back`): each kernel's count gains its launches, and while a
-    profiler session records, `key` (`graph_replays:<name>`) gains one."""
+    (`take_back`), one slot's launches: each kernel's count gains its
+    launches `runs` times (a block's iterations that ran), an if-node
+    guard's (`ops/graph_if.py`) `slots` times (the block's slots), and
+    while a profiler session records, `key` (`graph_replays:<name>`)
+    gains one."""
     for counts, name, n in delta:
-        counts[name] += n
+        counts[name] += n * (slots if counts is graph_if.LAUNCHES else runs)
     if _profiler._is_profiler_enabled:
         _add(key, 1)
 
