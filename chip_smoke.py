@@ -2349,7 +2349,6 @@ def tri_sweep_phase(matrices) -> dict:
                                       f"{err:.3e} > {tol:.3e} of k=1")
                     worst = max(worst, err)
                 k8_errs[sweep] = worst
-            state.check()
             x = sc.apply_tri(state, b).double().cpu().numpy()
             apply_err = float(np.abs(x - host_x).max() / np.abs(host_x).max())
             check(apply_err <= (1e-12 if f64 else 1e-4),

@@ -67,12 +67,6 @@ PRECISION_DTYPES = {
     "fp32_ir": "mixed",  # f32 inner solve + f64 iterative refinement
 }
 
-# Flags of the JAX CLI whose machinery is not ported yet (ROADMAP.md). None.
-_NOT_PORTED = ()
-# Solvers of the JAX package's registry that are not ported yet: refused,
-# where an unknown name would fall back to the default solver. None.
-_NOT_PORTED_SOLVERS = ()
-
 
 # The reference defaults to its CHOLMOD backend (CMakeLists.txt:5): here the
 # `cholmod` alias of the direct Cholesky solver.
@@ -203,11 +197,6 @@ def _prepare(args) -> _Prepared | int:
         print(f"Precision '{args.precision}' is not implemented "
               f"(supported: {', '.join(PRECISION_DTYPES)}).", file=sys.stderr)
         return 1
-    for attr, flag in _NOT_PORTED:
-        if getattr(args, attr):
-            print(f"{flag} is not yet ported to lsbench_tpu_torch "
-                  "(see ROADMAP.md).", file=sys.stderr)
-            return 1
     platform = args.platform.lower()
     if platform not in ("cuda", "cpu"):
         print(f"Unsupported platform '{args.platform}' (cuda | cpu).",
@@ -242,10 +231,6 @@ def _prepare(args) -> _Prepared | int:
             return 1
     device = torch.device(platform)
 
-    if args.solver is not None and args.solver.lower() in _NOT_PORTED_SOLVERS:
-        print(f"solver '{args.solver}' is not yet ported to "
-              "lsbench_tpu_torch (see ROADMAP.md).", file=sys.stderr)
-        return 1
     solver_name = _resolve_solver_name(args.solver)
     ordering = _resolve_ordering(args.ordering)
 

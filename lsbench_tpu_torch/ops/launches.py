@@ -25,9 +25,9 @@ records, a span is also a `record_function` in the trace (a
 
 The spans: `lsbench.ir.pass` (one refinement pass of `cg_ir` and its
 kin, `solvers/refine.py`), `lsbench.cg.iter` (one iteration body of
-`solvers/cg.py::cg_loop`, the stop test outside it; where the loop runs
-as CUDA graphs, only where it cannot run in blocks), `lsbench.cg.block`
-(one block of the graphed loop's guarded iterations and its read),
+the eager loop of `solvers/cg.py::cg_loop`, the stop test outside it),
+`lsbench.cg.block` (one block of the graphed loop's guarded iterations
+and its read),
 `lsbench.amg.vcycle` (one AMG preconditioner apply), inside it
 `lsbench.amg.level<l>` (level l of the cycle, nested as the recursion
 nests) and `lsbench.amg.coarse` (the dense coarse solve).
@@ -35,21 +35,16 @@ nests) and `lsbench.amg.coarse` (the dense coarse solve).
 CUDA graphs (`solvers/cg.py::CgGraphs`): a wrapper counts its launch while
 a graph is captured, but the kernel runs only when the graph is replayed.
 So `take_back` sets the counts back after a capture and keeps what it
-added, and `replayed` adds that again for every replay: for a block
+added, and `replayed` adds that again for every replay: for the block
 graph, its bodies' kernels once for each guarded iteration that ran and
 its guards once a slot, run or skipped. The counts stay the launches
 that ran. Inside a replayed graph the spans and host reads ran at capture
-only. While a session records, the graphs also add to:
+only. While a session records, the block graph also adds to:
 
-  graph_captures          graphs captured
-  graph_replays:<name>    replays of graph <name> (`lsbench.cg.start`,
-                          `lsbench.cg.block`, `lsbench.cg.iter`)
   graph_slots:lsbench.cg.block
-                          the guarded iterations replayed, run or
-                          skipped (the block's slots a replay)
-  graph_fallbacks         captures that raised (after the start's or an
-                          iteration's, that loop runs eager; after the
-                          block's, a graph an iteration)
+                  the guarded iterations replayed, run or skipped (the
+                  block's slots a replay; its replays are
+                  `span_n:lsbench.cg.block`)
 """
 
 from __future__ import annotations
@@ -140,18 +135,13 @@ def take_back(before: dict) -> tuple:
     return tuple(delta)
 
 
-def replayed(key: str, delta: tuple, runs: int = 1, slots: int = 1
-             ) -> None:
+def replayed(delta: tuple, runs: int = 1, slots: int = 1) -> None:
     """Count one replay of a graph whose capture launched `delta`
     (`take_back`), one slot's launches: each kernel's count gains its
     launches `runs` times (a block's iterations that ran), an if-node
-    guard's (`ops/graph_if.py`) `slots` times (the block's slots), and
-    while a profiler session records, `key` (`graph_replays:<name>`)
-    gains one."""
+    guard's (`ops/graph_if.py`) `slots` times (the block's slots)."""
     for counts, name, n in delta:
         counts[name] += n * (slots if counts is graph_if.LAUNCHES else runs)
-    if _profiler._is_profiler_enabled:
-        _add(key, 1)
 
 
 def host_read(t):

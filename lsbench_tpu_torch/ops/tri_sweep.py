@@ -51,9 +51,8 @@ segments from one call into `csrc/tri_sweep.cu`, which loops over the plan
 on the host (each launch a programmatic dependent launch: it may start
 while the one before drains); anything else raises. Each launch adds one
 to `LAUNCHES["tri_sweep_f32"]` or `LAUNCHES["tri_sweep_f64"]`, so a sweep
-of one b counts one per segment per block of `MAX_COLS` columns. `check`
-is kept for the solvers, which call it once per solve; the kernels keep
-no fault word, so it reads nothing. With `--debug-nans`
+of one b counts one per segment per block of `MAX_COLS` columns. A
+launch that fails raises where it is made. With `--debug-nans`
 (`utils/debug.py`) each wrapper raises
 `FloatingPointError` on a NaN in its output, from the kernel or the plain
 version.
@@ -500,8 +499,3 @@ def _launch_plan(S: TriSweep, name: str, b: torch.Tensor, x: torch.Tensor
                      kc, k)
         LAUNCHES[name] += len(S.plan)
 
-
-def check(*sweeps: TriSweep) -> None:
-    """Kept for the solvers, which call it once per solve: no launch of the
-    sweep kernels waits on another block or keeps a fault word, so there
-    is nothing to read. A failed launch raises where it is made."""

@@ -37,8 +37,7 @@ from lsbench_tpu_torch.ops.launches import host_read
 from lsbench_tpu_torch.ops.spmv_sell import spmm_sell
 from lsbench_tpu_torch.solvers.base import SolveResult, Solver, register_solver
 from lsbench_tpu_torch.solvers.cg import full_f32, permutation
-from lsbench_tpu_torch.solvers.preconditioners import (check as check_precond,
-                                                       build as build_precond)
+from lsbench_tpu_torch.solvers.preconditioners import build as build_precond
 from lsbench_tpu_torch.solvers.refine import f64_residual_matvec
 
 
@@ -225,7 +224,6 @@ class MultiRhsIrSolver(Solver):
             rr = _cdots(R, R)
             iters += inner_iters
             passes += 1
-        check_precond(self._pstate)
         if self._inv is not None:
             X = X[self._inv]
         rnorm = np.sqrt(rr.cpu().numpy())

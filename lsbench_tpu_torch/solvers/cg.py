@@ -5,15 +5,15 @@ order, same stop rule (`it < maxiter and rr > tol2`) — written as a Python
 loop over a state of tensors updated in place (`CgState`): `cg_start`
 makes the start from b, `cg_step` is one iteration body. The eager loop
 reads the stop test on the host (`host_read`) once per iteration, each
-body the span `lsbench.cg.iter` (`ops/launches.py`). On a CUDA device a
-solver's `CgGraphs` captures the start as a CUDA graph, and the body into
-a block graph of up to `SLOTS` slots, each a conditional (if) node that runs
+body the span `lsbench.cg.iter` (`ops/launches.py`). It runs on the CPU
+and under `--debug-nans`. Elsewhere, on a CUDA device, a solver's
+`CgGraphs` replays the start as a CUDA graph and the iterations as a block
+graph of up to `SLOTS` slots, each a conditional (if) node that runs
 `cg_step` only where the stop rule, evaluated on the device by one guard
-kernel, says go on (`ops/graph_if.py`); the host replays a block and reads the
-iteration count once per block (the span `lsbench.cg.block`). Where the
-if-nodes fail, the body is replayed as a graph of its own, one per
-iteration, with the stop test read before each. Every kernel and the order of
-operations are the eager loop's, so x is bit for bit the eager x.
+kernel, says go on (`ops/graph_if.py`); the host replays a block and reads
+the iteration count once per block (the span `lsbench.cg.block`). Every
+kernel and the order of operations are the eager loop's, so x is bit for
+bit the eager x.
 `build_matvec` gives
 the SpMV of each layout, after an optional reordering: the sliced-ELL
 kernels that replace K1 and K5 (f32) and K2 (f64) on the solver paths
@@ -26,7 +26,6 @@ torch ops: `ell` (`ops/spmv.py`), `bsr_xla` (`BsrMatrix.matvec_xla`) and
 from __future__ import annotations
 
 import time
-import warnings
 from contextlib import contextmanager, nullcontext
 
 import numpy as np
@@ -42,8 +41,7 @@ from lsbench_tpu_torch.ops.spmv import spmv_ell
 from lsbench_tpu_torch.ops.spmv_sell import spmv_sell, spmv_sell_f64
 from lsbench_tpu_torch.ordering import get_ordering
 from lsbench_tpu_torch.solvers.base import SolveResult, Solver, register_solver
-from lsbench_tpu_torch.solvers.preconditioners import (check as check_precond,
-                                                       build as build_precond)
+from lsbench_tpu_torch.solvers.preconditioners import build as build_precond
 from lsbench_tpu_torch.utils.debug import debug_nans_enabled
 from lsbench_tpu_torch.utils.precision import full_f32
 
@@ -55,7 +53,7 @@ def as_dtype(dtype) -> torch.dtype:
     return DTYPES[dtype] if isinstance(dtype, str) else dtype
 
 
-START, ITER, BLOCK = "lsbench.cg.start", "lsbench.cg.iter", "lsbench.cg.block"
+ITER, BLOCK = "lsbench.cg.iter", "lsbench.cg.block"
 
 # The most guarded iterations in a block graph, one host read each block: a
 # skipped slot costs its guard and its node, ~8 µs on an H100 (PERF.md §6,
@@ -142,23 +140,22 @@ class CgGraphs:
     """The CUDA graphs of one solver's CG loop: the start (`cg_start`) and
     the block of guarded iterations (`cg_step`), on one `CgState` made for
     the loop's (n, dtype, device, rtol, maxiter, matvec, precond_apply);
-    another loop makes a new state and captures anew. Each runs eagerly
-    the first time (loading every kernel and library handle it needs; the
-    first pass on the state is the eager loop, whose count sets the
-    block's slots, `block_slots`), is captured the second time and
-    replayed from then on. The captures share one private memory pool and
-    the block's if-node bodies one `MemPool` of their own; the pools hold
-    the temporaries for good. A replay adds its capture's launches to the
-    kernel counters: the block's, one slot's body for each iteration that
-    ran and its guard for each slot (`launches.replayed`).
+    another loop makes a new state and captures anew. The first pass on
+    the state runs eagerly, loading every kernel and library handle it
+    needs: its start, and the eager loop, whose count sets the block's
+    slots (`block_slots`). The second pass captures the start and then the
+    block, and every pass from then on replays them. The captures share
+    one private memory pool and the block's if-node bodies one `MemPool`
+    of their own; the pools hold the temporaries for good. A replay adds
+    its capture's launches to the kernel counters: the start's once, and
+    the block's one slot's body for each iteration that ran and its guard
+    for each slot (`launches.replayed`).
 
-    The graphs engage (`solving`) where the code can tell that they hold:
-    a CUDA device and the NaN switch off (its check reads the device). A
-    capture of the start or of a body that raises leaves the graphs to the
-    eager loop for good, with the reason in `failed`. Where the if-node
-    library does not load, or the block's capture raises (the reason in
-    `block_failed`), the body is a graph of its own, replayed once an
-    iteration after the host's stop test (`lsbench.cg.iter`).
+    The graphs engage (`solving`) on a CUDA device with the NaN switch off
+    (its check reads the device); the eager loop is for the CPU and that
+    switch. On the card the loop has no stand-in for its graphs: an
+    if-node library that does not build or load, or a capture that CUDA
+    refuses, raises.
 
     The solver does all its device work, its set-up and each solve, on the
     graphs' stream, one per device for every solver. The eager work and
@@ -174,8 +171,6 @@ class CgGraphs:
                           #   the stream the block graph is captured on)
 
     def __init__(self):
-        self.failed: str | None = None
-        self.block_failed: str | None = None
         self.on = False           # inside a `solving` that engaged
         self._stream = None       # set on the first `solving` that engaged
         self._block_stream = None
@@ -185,12 +180,13 @@ class CgGraphs:
         self._state: CgState | None = None
         self._pool = None
         self._body_pool = None    # the block's if-node bodies' MemPool
-        self._graphs: dict = {}   # name → (CUDAGraph, launches, key)
-        self._warm: set = set()   # steps run once on the state
+        self._start_graph = None  # (CUDAGraph, launches), once captured
+        self._block_graph = None  # (CUDAGraph, one slot's launches)
+        self._warm = False        # the state's first pass has run
 
-    def engages(self, device) -> bool:
-        return (self.failed is None and device.type == "cuda"
-                and not debug_nans_enabled())
+    @staticmethod
+    def engages(device) -> bool:
+        return device.type == "cuda" and not debug_nans_enabled()
 
     @contextmanager
     def solving(self, device):
@@ -230,8 +226,8 @@ class CgGraphs:
         key = (b.shape[0], dtype, b.device, rtol, maxiter, matvec,
                precond_apply)
         if key != self._key:
-            self._graphs.clear()
-            self._warm.clear()
+            self._start_graph = self._block_graph = None
+            self._warm = False
             self._state = CgState(b.shape[0], dtype, b.device)
             self._pool = torch.cuda.graph_pool_handle()
             self._limit = torch.full((), maxiter, dtype=torch.int64,
@@ -239,45 +235,49 @@ class CgGraphs:
             self._key = key
         return self._state
 
+    def start(self, fn) -> None:
+        """fn(state), the loop's start: eagerly on the state's first pass,
+        then as its graph."""
+        s = self._state
+        if not self._warm:
+            fn(s)
+            return
+        if self._start_graph is None:
+            self._start_graph = self._capture(lambda: fn(s))
+        graph, delta = self._start_graph
+        graph.replay()
+        launches.replayed(delta)
+
     def iterate(self, maxiter: int, step) -> int:
         """The iterations of one pass, from the state the start left;
-        returns their count. The first pass on the state is the eager
-        loop, and its count sets the block's slots; the next captures the
-        block (after the start, so that PyTorch puts its generators' graph
-        state, made at the first capture, on the solver's stream), and
-        each pass from then on replays it, one read of `it` a block. Where
-        if-nodes failed, from the block whose capture raised on, a graph
-        an iteration after the host's stop test."""
+        returns their count. The first pass on the state loads the
+        if-node library and is the eager loop, whose count sets the
+        block's slots; the next captures the block (after the start, so
+        that PyTorch puts its generators' graph state, made at the first
+        capture, on the solver's stream), and each pass from then on
+        replays it, one read of `it` a block."""
         s = self._state
-        if BLOCK not in self._warm:
-            self._warm.add(BLOCK)
-            try:
-                graph_if.load(s.it.device)
-            except (RuntimeError, OSError) as e:
-                self._refused(BLOCK, e)
+        if not self._warm:
+            graph_if.load(s.it.device)
+            self._warm = True
             it = eager_iterations(s, step, maxiter)
             self._slots = block_slots(it)
             return it
         it = enqueued = 0
-        while self.block_failed is None and self.failed is None:
+        while True:
             with span(BLOCK):
-                done = self._block(step, it)
-            if done is None:           # the capture raised: nothing ran
-                break
-            it, enqueued = done, enqueued + self._slots
+                it = self._block(step, it)
+            enqueued += self._slots
             if not block_goes_on(it, enqueued, maxiter):
                 return it
-        return eager_iterations(s, lambda _: self.run(ITER, step), maxiter,
-                                it)
 
-    def _block(self, step, it: int) -> int | None:
+    def _block(self, step, it: int) -> int:
         """One replay of the block graph from `it` iterations done;
-        returns the iterations done after it, or None where its capture
-        raised. The block is captured on a stream of its own and each
-        if-node's body on the solver's stream (`graph_if.if_node`)."""
+        returns the iterations done after it. The block is captured on a
+        stream of its own and each if-node's body on the solver's stream
+        (`graph_if.if_node`)."""
         s = self._state
-        entry = self._graphs.get(BLOCK)
-        if entry is None:
+        if self._block_graph is None:
             guard = (s.it, self._limit, s.rr, s.tol2)   # the stop rule's
             self._body_pool = torch.cuda.MemPool()
 
@@ -286,73 +286,33 @@ class CgGraphs:
                     with graph_if.if_node(*guard, self._stream,
                                           self._body_pool):
                         step(s)
-            entry = self._capture(BLOCK, block, self._slots,
-                                  self._block_stream)
-            if entry is None:
-                return None
-        graph, delta, key = entry
+            self._block_graph = self._capture(block, self._slots,
+                                              self._block_stream)
+        graph, delta = self._block_graph
         graph.replay()
         done = host_read(s.it)
-        launches.replayed(key, delta, done - it, self._slots)
+        launches.replayed(delta, done - it, self._slots)
         launches.count(f"graph_slots:{BLOCK}", self._slots)
         return done
 
-    def run(self, name: str, fn) -> None:
-        """fn(state): eagerly the first time, then as graph `name`."""
-        if self.failed is not None or name not in self._warm:
-            fn(self._state)
-            self._warm.add(name)
-            return
-        entry = self._graphs.get(name)
-        if entry is None:
-            entry = self._capture(name, lambda: fn(self._state))
-            if entry is None:
-                fn(self._state)
-                return
-        graph, delta, key = entry
-        graph.replay()
-        launches.replayed(key, delta)
-
-    def _capture(self, name: str, body, slots: int = 1, stream=None):
-        """Graph `name` of body(), captured on `stream` (default: the
-        current one): (graph, one slot's launches, its replay counter), or
-        None where CUDA refused the capture."""
+    def _capture(self, body, slots: int = 1, stream=None):
+        """A graph of body(), captured on `stream` (default: the current
+        one): (graph, one slot's launches). Raises where CUDA refuses the
+        capture."""
         before = launches.read()
         graph = torch.cuda.CUDAGraph()
         # Not `torch.cuda.graph`, whose gc.collect() and empty_cache()
         # before each capture add set-up time: the cache was handed back
         # once, on entering the graphs' stream (`solving`).
-        try:
-            with torch.cuda.stream(stream):
-                graph.capture_begin(pool=self._pool)
-                try:
-                    body()
-                finally:
-                    graph.capture_end()
-        except RuntimeError as e:
-            launches.take_back(before)
-            self._refused(name, e)
-            return None
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=self._pool)
+            try:
+                body()
+            finally:
+                graph.capture_end()
         delta = tuple((counts, key, n // slots)
                       for counts, key, n in launches.take_back(before))
-        entry = (graph, delta, f"graph_replays:{name}")
-        self._graphs[name] = entry
-        launches.count("graph_captures")
-        return entry
-
-    def _refused(self, name: str, e: Exception) -> None:
-        """CUDA refused graph `name`: after the block's, a graph an
-        iteration; after another, the eager loop, for good."""
-        why = f"{name}: {type(e).__name__}: {e}"
-        launches.count("graph_fallbacks")
-        if name == BLOCK:
-            self.block_failed = why
-            warnings.warn(f"CUDA graph if-nodes failed, the CG loop replays "
-                          f"a graph an iteration: {why}", RuntimeWarning)
-        else:
-            self.failed = why
-            warnings.warn(f"CUDA graph capture failed, the CG loop runs "
-                          f"eager: {why}", RuntimeWarning)
+        return graph, delta
 
 
 def solving(graphs: CgGraphs | None, device):
@@ -381,7 +341,7 @@ def cg_loop(matvec, precond_apply, b, rtol, maxiter, dtype, graphs=None):
         s.it.zero_()
     s = graphs.state(b, dtype, rtol, maxiter, matvec, precond_apply)
     s.r.copy_(b)
-    graphs.run(START, start)
+    graphs.start(start)
     it = graphs.iterate(maxiter, step)
     return s.x.clone(), it, torch.sqrt(s.rr), s.bnorm.clone()
 
@@ -499,7 +459,6 @@ class CgSolver(Solver):
             bp = b if self._perm is None else b[self._perm]
             x, iters, rnorm, bnorm = self._loop(
                 self._mv, self._pc, bp, self.rtol, self.maxiter, self._dt)
-            check_precond(self._pstate)
             if self._inv is not None:
                 x = x[self._inv]
             x = keep(x)

@@ -116,8 +116,7 @@ def _ic0_numeric(n, offs, cols, vals, cp, ci, a_low, diag0, alpha):
 def ic0_precond(A: CsrMatrix, dtype, device, shift: float = 0.0, **_):
     """(state, apply) for the preconditioner contract: z = (L Lᵀ)⁻¹ r with
     L = IC(0)(A), both sweeps on `device` in `dtype`. `state` is the
-    `TriPack`; the solvers call its `check()` once per solve
-    (`preconditioners.check`)."""
+    `TriPack`."""
     cp, ci, cx = ic0_factor(A, shift=shift)
     state, _ = pack_tri(cp, ci, cx, A.nrows, dtype, device)
 

@@ -133,16 +133,6 @@ PRECONDITIONERS = {
     "amg_classical": _amg_classical_precond,
     "ic0": _ic0_precond,
 }
-# Names of the JAX package's preconditioners that are not ported yet: none.
-NOT_PORTED = ()
-
-
-def check(state) -> None:
-    """Raise if the preconditioner's device work reported a fault: calls
-    the `check` method of a state that has one (IC(0)'s `TriPack`, whose
-    sweeps have nothing to report). Solvers call this once per solve."""
-    if hasattr(state, "check"):
-        state.check()
 
 
 def build(name: str, A: CsrMatrix, dtype, device, params: dict | None = None,
@@ -161,9 +151,5 @@ def get_preconditioner(name: str):
     key = name.lower()
     if key in PRECONDITIONERS:
         return PRECONDITIONERS[key]
-    if key in NOT_PORTED:
-        raise NotImplementedError(
-            f"preconditioner '{name}' is not yet ported to lsbench_tpu_torch "
-            "(ROADMAP.md Queue 1)")
     raise KeyError(
         f"unknown preconditioner '{name}'. Available: {sorted(PRECONDITIONERS)}")

@@ -30,8 +30,7 @@ from lsbench_tpu_torch.solvers.cg import (CgGraphs, build_matvec, cg_loop,
                                           permutation, resolve_layout,
                                           solving)
 from lsbench_tpu_torch.solvers.gmres import gmres_loop, max_restarts_for
-from lsbench_tpu_torch.solvers.preconditioners import (check as check_precond,
-                                                       build as build_precond)
+from lsbench_tpu_torch.solvers.preconditioners import build as build_precond
 
 
 def f64_residual_matvec(Ap: CsrMatrix, op, device):
@@ -175,7 +174,6 @@ class KrylovIrSolver(Solver):
                     rr = torch.dot(r, r)
                 iters += inner_iters
                 passes += 1
-            check_precond(self._pstate)
             if self._inv is not None:
                 x = x[self._inv]
             x = keep(x)

@@ -396,11 +396,6 @@ class TriPack(NamedTuple):
     f: TriSweep
     b: TriSweep
 
-    def check(self) -> None:
-        """The solvers' once-per-solve check of both sweeps
-        (`tri_sweep.check`)."""
-        tri_sweep.check(self.f, self.b)
-
 
 def upload_tri(host, dtype, device, plain=None) -> TriPack:
     """Both sweeps of `pack_tri_host`'s arrays on `device` in `dtype`: the
@@ -729,7 +724,7 @@ class SparseCholeskySolver(Solver):
     def _device_solve(self, b2: torch.Tensor) -> torch.Tensor:
         """A device schedule with refinement (`refine_columns`) until
         every column meets rtol or stops improving; b2 (n, k) on the
-        device. The level sweeps' `check` runs once, at the end. fp32_ir
+        device. fp32_ir
         sweeps the f32 residual scaled to unit norm from x = 0; otherwise
         the first sweep gives x and the refinement sweeps run in the
         solve's dtype."""
@@ -740,8 +735,6 @@ class SparseCholeskySolver(Solver):
         x, _, _, _ = refine_columns(bp, self._tri_apply, residual, self.rtol,
                                     self.max_refine, x=x0,
                                     unit_f32=self._ir)
-        if self.schedule == "level":
-            self._tri.check()
         return x if self._inv is None else x[self._inv]
 
     def _apply_solve(self, b):

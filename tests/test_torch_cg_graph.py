@@ -8,14 +8,15 @@ On the CPU:
   Jacobi, Chebyshev, block-Jacobi and classical-AMG preconditioning, in
   f32 and f64;
 - a graph's captured launches are added to each kernel's count once per
-  replay, and the graph keys appear only under a profiler session;
-- CPU tensors, the NaN switch and a failed capture each leave the loop
-  eager, and another loop on the same graphs takes a new state;
+  replay, and the block's slot count appears only under a profiler
+  session;
+- CPU tensors and the NaN switch leave the loop eager, and another loop
+  on the same graphs takes a new state;
 - the host's rule after a block of guarded iterations stops where the
   eager rule stops, and the block's slots follow the first pass; with a
   stand-in for CUDA's graphs, the block loop counts each slot's body once
-  per iteration that ran and its guard once a slot, and falls back to a
-  graph an iteration where if-nodes are missing or refused;
+  per iteration that ran and its guard once a slot, and raises where the
+  if-nodes are missing or CUDA refuses a capture;
 - a returned x does not change when the same solver solves again.
 
 On a card (`pytest -m cuda tests/test_torch_cg_graph.py`): the graphed
@@ -26,6 +27,7 @@ from the graphs' state, and IC(0)'s sweeps captured.
 """
 
 import gc
+import warnings
 from contextlib import contextmanager
 
 import numpy as np
@@ -36,8 +38,8 @@ from lsbench_tpu_torch.matrix.generate import poisson_2d
 from lsbench_tpu_torch.ops import graph_if, launches, spmv_sell, tri_sweep
 from lsbench_tpu_torch.solvers import get_solver
 from lsbench_tpu_torch.solvers import cg as cg_module
-from lsbench_tpu_torch.solvers.cg import (BLOCK, ITER, SLOTS, START,
-                                          CgGraphs, CgState, block_goes_on,
+from lsbench_tpu_torch.solvers.cg import (BLOCK, ITER, SLOTS, CgGraphs,
+                                          CgState, block_goes_on,
                                           block_slots, build_matvec, cg_loop)
 from lsbench_tpu_torch.solvers.preconditioners import build as build_precond
 from lsbench_tpu_torch.utils.debug import enable_debug_nans
@@ -131,7 +133,7 @@ def test_take_back_and_replayed_count_each_replay():
     delta = launches.take_back(before)
     assert launches.read() == before
     for _ in range(5):
-        launches.replayed("graph_replays:lsbench.cg.iter", delta)
+        launches.replayed(delta)
     got = launches.read()
     assert got["sell_f32"] == 5 and got["tri_sweep_f32"] == 15
     assert {k: v for k, v in got.items()
@@ -148,29 +150,28 @@ def test_take_back_keeps_earlier_counts():
     spmv_sell.LAUNCHES["sell_f64"] += 2
     delta = launches.take_back(before)
     assert spmv_sell.LAUNCHES["sell_f64"] == 4
-    launches.replayed("graph_replays:lsbench.cg.start", delta)
+    launches.replayed(delta)
     assert spmv_sell.LAUNCHES["sell_f64"] == 6
     launches.reset()
 
 
 def test_graph_keys_only_under_a_profiler():
+    """A replay adds no key of its own; the block's slots are counted only
+    while a session records."""
     launches.reset()
     keys = set(launches.read())
-    launches.replayed("graph_replays:lsbench.cg.iter", ())
-    launches.count("graph_captures")
-    launches.count("graph_fallbacks")
+    slots = f"graph_slots:{BLOCK}"
+    launches.replayed((), 3, SLOTS)
+    launches.count(slots, SLOTS)
     assert set(launches.read()) == keys
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]):
         for _ in range(3):
-            launches.replayed("graph_replays:lsbench.cg.iter", ())
-        launches.replayed("graph_replays:lsbench.cg.start", ())
-        launches.count("graph_captures")
-        launches.count("graph_fallbacks")
+            launches.replayed((), 2, SLOTS)
+            launches.count(slots, SLOTS)
+        launches.replayed(())
     got = launches.read()
-    assert got["graph_replays:lsbench.cg.iter"] == 3
-    assert got["graph_replays:lsbench.cg.start"] == 1
-    assert got["graph_captures"] == got["graph_fallbacks"] == 1
+    assert set(got) == keys | {slots} and got[slots] == 3 * SLOTS
     launches.reset()
     assert set(launches.read()) == keys
 
@@ -187,27 +188,28 @@ def test_graphs_engage_only_where_they_hold():
         assert not g.engages(card)
     finally:
         enable_debug_nans(False)
-    g.failed = "lsbench.cg.iter: RuntimeError: planted"
-    assert not g.engages(card)
 
 
 def test_graphs_take_a_new_state_for_another_loop(monkeypatch):
     """The captures bake in the loop's size, dtype, device, rtol, maxiter,
-    SpMV and preconditioner: a change of any one makes a new state, to
-    capture anew."""
+    SpMV and preconditioner: a change of any one makes a new state, whose
+    first pass runs eagerly, to capture anew."""
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", object)
     g = CgGraphs()
     b = torch.zeros(8)
     parts = [b, torch.float32, 1e-5, 100, _same, _same]
     s0 = g.state(*parts)
-    g._graphs["lsbench.cg.iter"] = "captured"
-    assert g.state(*parts) is s0 and g._graphs
+    g._start_graph = g._block_graph = "captured"
+    g._warm = True
+    assert g.state(*parts) is s0 and g._start_graph and g._warm
     for i, other in [(0, torch.zeros(9)), (1, torch.float64), (2, 1e-6),
                      (3, 99), (4, lambda v: v), (5, lambda r: r)]:
         changed = list(parts)
         changed[i] = other
-        g._graphs["lsbench.cg.iter"] = "captured"
-        assert g.state(*changed) is not s0 and not g._graphs
+        g._start_graph = g._block_graph = "captured"
+        g._warm = True
+        assert g.state(*changed) is not s0
+        assert g._start_graph is g._block_graph is None and not g._warm
         s0 = g.state(*parts)
 
 
@@ -221,42 +223,9 @@ def test_cpu_loop_with_graphs_stays_eager(A):
     got = cg_loop(mv, pc, b, 1e-6, 500, torch.float32, graphs=g)
     want = cg_loop(mv, pc, b, 1e-6, 500, torch.float32)
     assert got[1] == want[1] and torch.equal(got[0], want[0])
-    assert g._state is None and not g._graphs and g.failed is None
+    assert g._state is None and g._start_graph is g._block_graph is None
     with g.solving(torch.device("cpu")) as keep:
         assert keep(b) is b and not g.on
-
-
-def test_a_capture_that_raises_runs_the_step_eagerly(monkeypatch):
-    """With CUDA's capture planted to fail: the step runs eagerly on the
-    state, its launches count once, and the graphs stay eager for good."""
-    class Refused:
-        def capture_begin(self, pool=None):
-            raise RuntimeError("operation not permitted when stream is "
-                               "capturing")
-
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", Refused)
-    g = CgGraphs()
-    g._state = CgState(4, torch.float32, torch.device("cpu"))
-    g._state.x.zero_()
-
-    def step(s):
-        spmv_sell.LAUNCHES["sell_f32"] += 1
-        s.x.add_(1.0)
-
-    launches.reset()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU]):
-        g.run(ITER, step)                    # the eager first run
-        with pytest.warns(RuntimeWarning, match="runs eager"):
-            g.run(ITER, step)                # the capture, refused
-        g.run(ITER, step)
-    assert g.failed.startswith(f"{ITER}: RuntimeError")
-    assert not g.engages(torch.device("cuda")) and not g._graphs
-    got = launches.read()
-    assert got["sell_f32"] == 3 and got["graph_fallbacks"] == 1
-    assert "graph_captures" not in got
-    assert torch.equal(g._state.x, torch.full((4,), 3.0))
-    launches.reset()
 
 
 # ------------------------------------------------- blocks of guarded slots
@@ -312,8 +281,7 @@ class FakeGraph:
     """CUDA's graph on the CPU: a capture runs nothing (the state is set
     back at its end), and a replay does what the card would, each
     if-node's guard on the state and, where it holds, it += 1 and one
-    halving of rr (a stand-in iteration); a graph without if-nodes, one
-    halving."""
+    halving of rr (a stand-in iteration)."""
     state = None
     limit = None
     maxiter = 0
@@ -334,8 +302,6 @@ class FakeGraph:
 
     def replay(self):
         s = FakeGraph.state
-        if not self.ifs:
-            s.rr.mul_(0.5)
         for _ in range(self.ifs):
             if bool(graph_if.go(s.it, FakeGraph.limit, s.rr, s.tol2)):
                 s.it.add_(1)
@@ -373,12 +339,22 @@ def fake_step(s):
         s.rr.mul_(0.5)
 
 
-def fake_passes(monkeypatch, needs, maxiter, if_node=fake_if_node,
+def no_start(s):
+    """The start's work is done by `fake_pass` itself."""
+
+
+def host_read_start(s):
+    """A start that reads the device on the host, which a capture
+    refuses."""
+    if FakeGraph.capturing is not None:
+        raise RuntimeError("operation not permitted when stream is "
+                           "capturing")
+
+
+def fake_graphs(monkeypatch, maxiter, if_node=fake_if_node,
                 load=lambda device: None):
-    """Passes of the graphed loop that need `needs` iterations each (rr
-    starts at 1 and each iteration halves it; tol2 = 0.5**need), on
-    stand-in graphs (the start's graph aside); returns (the graphs, each
-    pass's count)."""
+    """A loop's graphs and state of maxiter on stand-ins for CUDA's
+    graphs."""
     monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", object)
     monkeypatch.setattr(torch.cuda, "MemPool", object)
@@ -388,13 +364,26 @@ def fake_passes(monkeypatch, needs, maxiter, if_node=fake_if_node,
     s = g.state(torch.zeros(4), torch.float32, 1e-5, maxiter, _same, _same)
     FakeGraph.state, FakeGraph.limit = s, g._limit
     FakeGraph.maxiter = maxiter
-    got = []
-    for need in needs:                # the start, as its graph would
-        s.rr.fill_(1.0)
-        s.it.zero_()
-        s.tol2.fill_(0.5 ** need)
-        got.append(g.iterate(maxiter, fake_step))
-    return g, got
+    return g
+
+
+def fake_pass(g, need, maxiter, start=no_start):
+    """One pass of the graphed loop that needs `need` iterations (rr starts
+    at 1 and each iteration halves it; tol2 = 0.5**need): its start, then
+    its iterations; returns their count."""
+    s = g._state
+    s.rr.fill_(1.0)
+    s.it.zero_()
+    s.tol2.fill_(0.5 ** need)
+    g.start(start)
+    return g.iterate(maxiter, fake_step)
+
+
+def fake_passes(monkeypatch, needs, maxiter):
+    """Passes that need `needs` iterations each; returns (the graphs, each
+    pass's count)."""
+    g = fake_graphs(monkeypatch, maxiter)
+    return g, [fake_pass(g, need, maxiter) for need in needs]
 
 
 NEEDS = [20, 2 * SLOTS, 3, SLOTS, 0, 40, SLOTS + 1]
@@ -402,7 +391,7 @@ NEEDS = [20, 2 * SLOTS, 3, SLOTS, 0, 40, SLOTS + 1]
 
 @pytest.mark.parametrize("needs", [NEEDS, [3] + NEEDS, [0] + NEEDS],
                          ids=["long-first", "short-first", "zero-first"])
-@pytest.mark.parametrize("maxiter", [1000, SLOTS + 5, 7])
+@pytest.mark.parametrize("maxiter", [1000, SLOTS + 5, 7, SLOTS])
 def test_block_loop_counts_each_iteration_that_ran(monkeypatch, maxiter,
                                                    needs):
     launches.reset()
@@ -411,8 +400,7 @@ def test_block_loop_counts_each_iteration_that_ran(monkeypatch, maxiter,
         g, got = fake_passes(monkeypatch, needs, maxiter)
     want = [min(need, maxiter) for need in needs]
     assert got == want
-    assert g.failed is None and g.block_failed is None
-    assert set(g._graphs) == {BLOCK}
+    assert g._start_graph is not None and g._block_graph is not None
     slots = block_slots(want[0])
     assert g._slots == slots
     counts = launches.read()
@@ -422,16 +410,16 @@ def test_block_loop_counts_each_iteration_that_ran(monkeypatch, maxiter,
     for it in want[1:]:
         full = it == maxiter and it % slots == 0 and it > 0
         blocks.append(it // slots + (0 if full else 1))
-    replays = counts[f"graph_replays:{BLOCK}"]
+    replays = counts[f"span_n:{BLOCK}"]
     assert replays == sum(blocks)
     assert counts[f"graph_slots:{BLOCK}"] == slots * replays
     assert counts["if_guard_f32"] == slots * replays    # run or skipped
-    assert counts["span_n:lsbench.cg.block"] == replays
     assert counts["sell_f32"] == sum(want)      # once an iteration that ran
-    assert counts.get("span_n:lsbench.cg.iter", 0) == want[0]
+    assert counts.get(f"span_n:{ITER}", 0) == want[0]
     # The eager loop reads once more where it stops short of maxiter.
     assert counts["host_syncs"] == want[0] + (want[0] < maxiter) + replays
-    assert counts["graph_captures"] == 1 and "graph_fallbacks" not in counts
+    assert {k for k in counts if k.startswith("graph")} == {
+        f"graph_slots:{BLOCK}"}
     launches.reset()
 
 
@@ -444,37 +432,36 @@ def test_block_loop_counts_kernels_without_a_profiler(monkeypatch):
     launches.reset()
 
 
-@pytest.mark.parametrize("how", ["unbuilt", "refused"])
-def test_failed_if_nodes_fall_back_to_a_graph_an_iteration(monkeypatch,
-                                                           how):
-    """Where the if-node library cannot be built or loaded, the loop runs
-    a graph an iteration after the first pass (the eager loop); where
-    CUDA refuses the block's capture, in the second pass, nothing of the
-    block ran and the pass goes on the same way. Either way the graphs
-    stay on."""
-    launches.reset()
-    parts = ({"load": no_graph_if} if how == "unbuilt"
-             else {"if_node": refused_if_node})
+@pytest.mark.parametrize("how", ["unbuilt", "refused-start",
+                                 "refused-block"])
+def test_graphs_that_cannot_run_raise(monkeypatch, how):
+    """On the card the loop has no stand-in for its graphs. Where the
+    if-node library cannot be built or loaded, the first pass raises
+    before any iteration; where CUDA refuses the start's or the block's
+    capture, the second pass raises, after the first pass ran eagerly.
+    No warning, no eager loop, and the next pass raises again."""
     maxiter = SLOTS + 5
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU]):
-        with pytest.warns(RuntimeWarning, match="a graph an iteration"):
-            g, got = fake_passes(monkeypatch, NEEDS, maxiter, **parts)
-    want = [min(need, maxiter) for need in NEEDS]
-    assert got == want
-    assert g.failed is None and g.block_failed.startswith(
-        f"{BLOCK}: RuntimeError")
+    parts, start, match = {
+        "unbuilt": ({"load": no_graph_if}, no_start, "nvcc not found"),
+        "refused-start": ({}, host_read_start, "stream is capturing"),
+        "refused-block": ({"if_node": refused_if_node}, no_start,
+                          "stream is capturing"),
+    }[how]
+    launches.reset()
+    g = fake_graphs(monkeypatch, maxiter, **parts)
+    first = min(NEEDS[0], maxiter)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        if how != "unbuilt":
+            assert fake_pass(g, NEEDS[0], maxiter, start) == first
+        for _ in range(2):
+            with pytest.raises(RuntimeError, match=match):
+                fake_pass(g, NEEDS[1], maxiter, start)
     assert g.engages(torch.device("cuda"))
-    assert set(g._graphs) == {ITER}
-    counts = launches.read()
-    assert counts["graph_fallbacks"] == 1 and counts["sell_f32"] == sum(want)
-    assert counts["span_n:lsbench.cg.iter"] == sum(want)
-    if how == "unbuilt":
-        assert "span_n:lsbench.cg.block" not in counts
-    else:
-        assert counts["span_n:lsbench.cg.block"] == 1
-    assert f"graph_replays:{BLOCK}" not in counts
-    assert counts["if_guard_f32"] == 0
+    assert g._block_graph is None
+    assert (g._start_graph is None) == (how != "refused-block")
+    ran = 0 if how == "unbuilt" else first
+    assert launches.read()["sell_f32"] == ran
     launches.reset()
 
 
@@ -589,8 +576,7 @@ def test_graphed_loop_matches_eager_on_card(card_A, name, params,
     graphed = solves(solver, card_A, cuda_device)
     assert kernel_counts() == eager_counts
     g = solver._graphs
-    assert g.failed is None and g.block_failed is None
-    assert set(g._graphs) == {START, BLOCK}
+    assert g._start_graph is not None and g._block_graph is not None
     for (xe, ie, pe), (xg, ig, pg) in zip(eager, graphed):
         assert (ie, pe) == (ig, pg)
         assert torch.equal(xe, xg)
@@ -598,7 +584,7 @@ def test_graphed_loop_matches_eager_on_card(card_A, name, params,
 
 
 @pytest.mark.cuda
-def test_graph_replays_are_counted_under_a_profiler(card_A, cuda_device):
+def test_block_replays_are_counted_under_a_profiler(card_A, cuda_device):
     solver = card_solver(card_A, "cg_ir", {}, cuda_device)
     solves(solver, card_A, cuda_device, k=2)
     launches.reset()
@@ -607,18 +593,17 @@ def test_graph_replays_are_counted_under_a_profiler(card_A, cuda_device):
         res = solver.solve(rhs(card_A.nrows, seed=5, device=cuda_device))
     got = launches.read()
     passes = res.extra["refine_passes"]
-    replays = got[f"graph_replays:{BLOCK}"]
+    replays = got[f"span_n:{BLOCK}"]
     slots = solver._graphs._slots
     assert got[f"graph_slots:{BLOCK}"] == slots * replays
     assert got["if_guard_f32"] == slots * replays
-    assert got[f"span_n:{BLOCK}"] == replays
     assert passes <= replays <= res.iters // slots + passes
-    assert f"span_n:{ITER}" not in got and f"graph_replays:{ITER}" not in got
-    assert got["graph_replays:lsbench.cg.start"] == passes
+    assert f"span_n:{ITER}" not in got
     assert got["sell_f32"] == res.iters and got["sell_f64"] == passes
     # A read a block, one a pass and two a solve.
     assert got["host_syncs"] == replays + passes + 1 + 2
-    assert "graph_captures" not in got and "graph_fallbacks" not in got
+    assert {k for k in got if k.startswith("graph")} == {
+        f"graph_slots:{BLOCK}"}
     launches.reset()
 
 
@@ -671,17 +656,11 @@ def test_ic0_is_captured_or_flagged(card_A, cuda_device):
     eager = solves(card_solver(card_A, "cg_ir", {"precond": "ic0"},
                                cuda_device, False), card_A, cuda_device)
     solver = card_solver(card_A, "cg_ir", {"precond": "ic0"}, cuda_device)
-    launches.reset()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU]):
-        got = solves(solver, card_A, cuda_device)
-    assert "graph_fallbacks" not in launches.read()
+    got = solves(solver, card_A, cuda_device)
     g = solver._graphs
-    assert g.failed is None and g.block_failed is None
-    assert set(g._graphs) == {START, BLOCK}
+    assert g._start_graph is not None and g._block_graph is not None
     for (xe, ie, pe), (xg, ig, pg) in zip(eager, got):
         assert (ie, pe) == (ig, pg) and torch.equal(xe, xg)
-    launches.reset()
 
 
 EDGE_SOLVES = [
@@ -747,9 +726,8 @@ def test_graphed_blocks_match_eager_at_their_edges(card_A, name, params,
     torch.cuda.synchronize(cuda_device)
     assert kernel_counts() == eager_counts
     g = solver._graphs
-    assert g.failed is None and g.block_failed is None
     # cg_ir makes no pass for b = 0.
-    assert (BLOCK in g._graphs) == (case != "zero_b" or name == "cg")
+    assert (g._block_graph is not None) == (case != "zero_b" or name == "cg")
     for e, r in zip(eager, graphed):
         assert (e.iters, e.extra.get("refine_passes")) == (
             r.iters, r.extra.get("refine_passes"))
